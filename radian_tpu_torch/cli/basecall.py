@@ -1,0 +1,142 @@
+"""Basecall CLI (counterpart of radian_tpu/cli/basecall.py).
+
+The JAX CLI's flags, same names and defaults, plus ``--device``.  Flags
+whose paths this package has not ported yet raise
+``NotImplementedError`` naming the ROADMAP item.
+
+Usage:
+    python -m radian_tpu_torch.cli.basecall FAST5_DIR FASTA_DIR --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Basecall a nanopore dRNA sequencing run on a GPU."
+    )
+    p.add_argument("fast5_dir", help="Directory of single/multi fast5 files.")
+    p.add_argument("fasta_dir", help="Directory to output fasta files.")
+    p.add_argument("--local", action="store_true",
+                   help="(reference compat; no effect)")
+    p.add_argument("--chunk-len", default=1024, type=int)
+    p.add_argument("--step-size", default=128, type=int)
+    p.add_argument("--batch-size", default=32, type=int,
+                   help="(accepted for reference compat; superseded by "
+                        "--read-batch bucketing)")
+    p.add_argument("--outlier-clip", default=4, type=float)
+    p.add_argument("--rna-model", default="None",
+                   help="12-mer LM json path, or 'None' to disable fusion "
+                        "(only 'None' is ported)")
+    p.add_argument("--sig-model", default=None,
+                   help="checkpoint: flax-layout .npz, or omit for seeded "
+                        "init")
+    p.add_argument("--sig-config", default=None, help="model config yaml")
+    p.add_argument("--beam-width", default=6, type=int)
+    p.add_argument("--decode-type", choices=["global", "chunk"],
+                   default="global")
+    p.add_argument("--sig-threshold", default=0.5, type=float)
+    p.add_argument("--rna-threshold", default=0.5, type=float)
+    p.add_argument("--context-len", default=11, type=int)
+    p.add_argument("--read-batch", default=8, type=int,
+                   help="reads decoded concurrently per bucket")
+    p.add_argument("--assembly-mode", choices=["first", "mean"],
+                   default="first")
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
+                   default="float32")
+    p.add_argument("--prep-mode",
+                   choices=["auto", "fullread", "strips", "windows"],
+                   default="auto",
+                   help="global-mode forward; only 'auto'/'fullread' (one "
+                        "causal TCN pass over the whole read) are ported")
+    p.add_argument("--chunk-prep",
+                   choices=["auto", "fused", "fullprobs", "windows"],
+                   default="auto")
+    p.add_argument("--no-chunk-crop", action="store_true")
+    p.add_argument("--chunk-lm", action="store_true")
+    p.add_argument("--chunk-max-lab", default=512, type=int)
+    p.add_argument("--consensus", choices=["reference", "device"],
+                   default="reference")
+    p.add_argument("--seed", default=0, type=int,
+                   help="init seed when no --sig-model is given")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="shard each read batch over this many local GPUs")
+    p.add_argument("--shard-reads", action="store_true",
+                   help="multi-host: each host basecalls its share of reads")
+    p.add_argument("--streaming", action="store_true",
+                   help="bounded-memory streaming mode")
+    p.add_argument("--bucket-lengths", default=None,
+                   help="comma-separated fixed bucket ladder (e.g. "
+                        "'4096,8192,16384')")
+    p.add_argument("--prewarm", action="store_true",
+                   help="run one batch per --bucket-lengths entry before "
+                        "processing reads")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu' for the plain PyTorch "
+                        "path")
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+
+    import torch
+
+    from radian_tpu_torch.pipeline import (
+        BasecallOptions,
+        load_basecaller,
+        unported,
+    )
+
+    if args.chunk_lm:
+        raise unported("--chunk-lm", "chunk modes")
+    if args.mesh_data is not None:
+        raise unported("--mesh-data", "multi-GPU")
+    if args.shard_reads:
+        raise unported("--shard-reads", "multi-GPU")
+    options = BasecallOptions(
+        chunk_len=args.chunk_len,
+        step_size=args.step_size,
+        outlier_clip=args.outlier_clip,
+        beam_width=args.beam_width,
+        decode_type=args.decode_type,
+        sig_threshold=args.sig_threshold,
+        rna_threshold=args.rna_threshold,
+        context_len=args.context_len,
+        assembly_mode=args.assembly_mode,
+        read_batch=args.read_batch,
+        prep_mode=args.prep_mode,
+        chunk_prep=args.chunk_prep,
+        chunk_crop=not args.no_chunk_crop,
+        chunk_lm=args.chunk_lm,
+        chunk_max_lab=args.chunk_max_lab,
+        consensus=args.consensus,
+        bucket_lengths=(
+            tuple(int(x) for x in args.bucket_lengths.split(","))
+            if args.bucket_lengths else None
+        ),
+    )
+    bc = load_basecaller(
+        checkpoint=args.sig_model,
+        config_path=args.sig_config,
+        rna_model=args.rna_model,
+        options=options,
+        seed=args.seed,
+        compute_dtype=(
+            torch.bfloat16 if args.compute_dtype == "bfloat16"
+            else torch.float32
+        ),
+        device=args.device,
+    )
+    if args.prewarm:
+        t = bc.warmup()
+        print(f"prewarm: ran {len(set(options.bucket_lengths))} bucket "
+              f"batches in {t:.1f}s")
+    bc.basecall_directory(args.fast5_dir, args.fasta_dir,
+                          streaming=args.streaming)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,87 @@
+"""The sig2seq signal model (counterpart of radian_tpu/models/sig2seq.py).
+
+``[N, T, 1] → TCN → Linear(relu_units) → ReLU → Linear(softmax_units)
+→ f32 log-softmax`` (or softmax), one distribution over {A, C, G, U,
+blank} per input sample.  The conv stack is ``F.conv1d`` (cuDNN on the
+card) and the head is two matrix products: both were plain XLA on the
+TPU, not Pallas kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from radian_tpu_torch.config import DotDict, default_config
+from radian_tpu_torch.models.tcn import TCN, CausalConv1D, he_normal_
+
+
+class SigToSeq(nn.Module):
+    """TCN + dense head.  ``forward`` returns log-probabilities by default."""
+
+    def __init__(self, relu_units: int = 128, softmax_units: int = 5,
+                 nb_filters: int = 256, kernel_size: int = 3,
+                 nb_stacks: int = 1, dilations=(1, 2, 4, 8, 16, 32),
+                 padding: str = "causal", use_skip_connections: bool = False,
+                 dropout_rate: float = 0.0, return_sequences: bool = True,
+                 use_batch_norm: bool = False):
+        super().__init__()
+        self.tcn = TCN(nb_filters, kernel_size, nb_stacks, dilations,
+                       padding, use_skip_connections, dropout_rate,
+                       return_sequences, use_batch_norm)
+        self.dense_relu = nn.Linear(nb_filters, relu_units)
+        self.dense_out = nn.Linear(relu_units, softmax_units)
+
+    @property
+    def receptive_field(self) -> int:
+        return self.tcn.receptive_field
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """Seeded init with flax's initialisers (he_normal kernels, zero
+        biases); the numbers differ from ``jax.random``'s."""
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                he_normal_(m.weight, m.in_features, generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, CausalConv1D):
+                m.reset_parameters(generator)
+
+    def forward(self, x, *, probs: bool = False):
+        """``[N, T, 1]`` signal → ``[N, T, softmax_units]`` f32."""
+        if x.is_cuda:
+            # cuDNN runs f32 convolutions in TF32 by default, which keeps
+            # ~3 decimal digits: the probabilities, and so the decoded
+            # strings, would drift from the f32 reference.
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        h = self.tcn(x.float().transpose(1, 2))
+        h = h.transpose(-1, -2) if h.dim() == 3 else h  # [N, T, C]
+        h = F.relu(self.dense_relu(h))
+        logits = self.dense_out(h).float()
+        if probs:
+            return torch.softmax(logits, dim=-1)
+        return torch.log_softmax(logits, dim=-1)
+
+
+def build_model(config: DotDict | None = None) -> SigToSeq:
+    """Construct a SigToSeq from a config (defaults to reference parity)."""
+    cfg = config if config is not None else default_config()
+    m = cfg.model
+    return SigToSeq(
+        relu_units=m.relu_units,
+        softmax_units=m.softmax_units,
+        nb_filters=m.tcn.nb_filters,
+        kernel_size=m.tcn.kernel_size,
+        nb_stacks=m.tcn.nb_stacks,
+        dilations=tuple(m.tcn.dilations),
+        padding=m.tcn.padding,
+        use_skip_connections=m.tcn.use_skip_connections,
+        dropout_rate=m.tcn.dropout_rate,
+        return_sequences=m.tcn.return_sequences,
+        use_batch_norm=m.tcn.use_batch_norm,
+    )
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

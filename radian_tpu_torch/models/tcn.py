@@ -1,0 +1,119 @@
+"""Temporal convolutional network backbone (counterpart of radian_tpu/models/tcn.py).
+
+Same architecture as the JAX module: ``nb_stacks × len(dilations)``
+residual blocks of two dilated causal convolutions with ReLU, a 1×1
+shortcut only where the channel count changes (block 0: 1 → 256), and the
+residual add + ReLU in float32.  With the default config the receptive
+field is ``1 + 2*(k-1)*sum(dilations) = 253`` samples.
+
+Layout: the public boundary is ``[N, T, C]`` like the JAX module; inside,
+activations are ``[N, C, T]``, the layout ``F.conv1d`` takes, so the stack
+transposes once on the way in and once on the way out.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def he_normal_(weight: torch.Tensor, fan_in: int,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+    """Flax ``he_normal``: truncated normal (±2σ), variance 2/fan_in."""
+    # 0.8796... is the std of a unit normal truncated to [-2, 2]
+    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                                     generator=generator)
+
+
+class CausalConv1D(nn.Module):
+    """Dilated 1-D convolution with causal (left-only) padding, ``[N, C, T]``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 dilation: int = 1, padding: str = "causal"):
+        super().__init__()
+        if padding != "causal":
+            raise NotImplementedError(
+                f"padding={padding!r}: only 'causal' is ported")
+        self.kernel_size = kernel_size
+        self.dilation = dilation
+        self.weight = nn.Parameter(
+            torch.empty(features, in_channels, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator=None):
+        he_normal_(self.weight, self.weight.shape[1] * self.kernel_size,
+                   generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        x = F.pad(x, ((self.kernel_size - 1) * self.dilation, 0))
+        return F.conv1d(x, self.weight, self.bias, dilation=self.dilation)
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, in_channels: int, filters: int, kernel_size: int,
+                 dilation: int, padding: str = "causal"):
+        super().__init__()
+        self.conv0 = CausalConv1D(in_channels, filters, kernel_size,
+                                  dilation, padding)
+        self.conv1 = CausalConv1D(filters, filters, kernel_size, dilation,
+                                  padding)
+        # 1×1 shortcut only where the channel count changes (block 0)
+        self.shortcut = (CausalConv1D(in_channels, filters, 1)
+                         if in_channels != filters else None)
+
+    def forward(self, x):
+        branch = F.relu(self.conv1(F.relu(self.conv0(x))))
+        inputs = x if self.shortcut is None else self.shortcut(x)
+        out = F.relu(inputs.float() + branch.float()).to(x.dtype)
+        return out, branch
+
+
+class TCN(nn.Module):
+    def __init__(self, nb_filters: int = 256, kernel_size: int = 3,
+                 nb_stacks: int = 1,
+                 dilations: Sequence[int] = (1, 2, 4, 8, 16, 32),
+                 padding: str = "causal", use_skip_connections: bool = False,
+                 dropout_rate: float = 0.0, return_sequences: bool = True,
+                 use_batch_norm: bool = False, in_channels: int = 1):
+        super().__init__()
+        if dropout_rate > 0.0 or use_batch_norm:
+            raise NotImplementedError(
+                "dropout and batch norm are training options: ROADMAP "
+                "Queue 1 'Training'")
+        self.kernel_size = kernel_size
+        self.nb_stacks = nb_stacks
+        self.dilations = tuple(dilations)
+        self.use_skip_connections = use_skip_connections
+        self.return_sequences = return_sequences
+        blocks = []
+        c = in_channels
+        for _ in range(nb_stacks):
+            for d in self.dilations:
+                blocks.append(ResidualBlock(c, nb_filters, kernel_size, d,
+                                            padding))
+                c = nb_filters
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x):
+        """``[N, C_in, T]`` → ``[N, nb_filters, T]`` (or ``[N, nb_filters]``)."""
+        skips = []
+        for block in self.blocks:
+            x, branch = block(x)
+            skips.append(branch)
+        if self.use_skip_connections:
+            x = sum(s.float() for s in skips).to(x.dtype)
+        if not self.return_sequences:
+            x = x[:, :, -1]
+        return x
+
+    @property
+    def receptive_field(self) -> int:
+        return 1 + 2 * (self.kernel_size - 1) * self.nb_stacks * sum(
+            self.dilations)

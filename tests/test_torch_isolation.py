@@ -1,0 +1,47 @@
+"""The port stays free of JAX, and its tests keep torch out of collection."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from tests.torch_one_cpu import one_cpu  # noqa: F401  (autouse fixture)
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "radian_tpu_torch"
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, pkgutil, importlib, radian_tpu_torch\n"
+        "for m in pkgutil.walk_packages(radian_tpu_torch.__path__, "
+        "'radian_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'radian_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_forbidden_imports():
+    """No file of the port (or chip_smoke.py) imports JAX or the JAX
+    package.  No test module imports torch or the port at module level:
+    collection imports every test module into every xdist worker, which
+    would load torch beside tests/test_train.py (see
+    tests/torch_one_cpu.py)."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|radian_tpu)\b",
+                     re.M)
+    files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pat.search(f.read_text())]
+    assert not offenders, offenders
+    pat = re.compile(r"^(import|from)\s+(torch|radian_tpu_torch)\b", re.M)
+    offenders = [f.name for f in (REPO / "tests").glob("*.py")
+                 if pat.search(f.read_text())]
+    assert not offenders, offenders
