@@ -6,11 +6,12 @@ one CUDA device at the full width of the repo's trained model
 (bench_data/trained/params.npz, 2,200,581 parameters), and checks it:
 
   1. device   nvidia-smi name and power limit, torch's device name
-  2. build    nvcc builds every csrc/*.cu kernel from this checkout
-  3. kernel   beam-search kernel vs its plain PyTorch version, both on the
-              card: N=64, T up to 1,500, beams 1/2/6/8 and one case with
-              exact-zero probabilities; labels and n_labels identical,
-              scores within 1e-5 absolute
+  2. build    nvcc builds every csrc/*.cu kernel from this checkout; ptxas
+              registers, stack frame and spills per kernel instantiation
+  3. kernel   beam-search kernels vs their plain PyTorch version, both on
+              the card: N=64, T up to 1,500, beams 1/2/6/8/12/16 and one
+              case with exact-zero probabilities; labels and n_labels
+              identical, scores within 1e-5 absolute
   4. model    SigToSeq on the card (TF32 off) vs the port's CPU run,
               4 reads of ~4,000 samples; max |dp| <= 1e-4
   5. e2e      Basecaller (beam 6, read_batch 256, bucket quantum 4096) on
@@ -18,10 +19,11 @@ one CUDA device at the full width of the repo's trained model
               a timed run with every kernel launch count set to 0; reads/s,
               Msamples/s, forward/decode ms per batch, peak memory; every
               kernel must have launched; card strings == CPU strings on a
-              small input
+              small input at beams 6 and 16
   6. kernels  each kernel vs its plain version on the inputs the main
               path gave it (the first batch), timed with CUDA events,
-              beside its bound (bytes or operations over the H100's peaks)
+              beside its bound (bytes or operations over the H100's peaks);
+              the decode kernel also timed at beam 16 on that batch
 
 Prints the nvidia-smi line, one JSON line of kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script
@@ -33,6 +35,7 @@ exits non-zero before that line.  Needs one CUDA device and nvcc:
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -73,9 +76,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def decode_ops_per_step(w: int) -> int:
-    """Operations one decode step does for one read, counted from the
-    kernel: ~29·W² (merge tests over [4, W, W], top-W selection over 5W
-    slots) + ~83·W (candidate scoring, logaddexps, state updates)."""
+    """Operations one decode step needs for one read: ~29·W² (merge tests
+    over [4, W, W], top-W selection over 5W slots) + ~83·W (candidate
+    scoring, logaddexps, state updates).  The warp kernel does more (each
+    lane ranks its slots against all 5W), but a bound counts the work,
+    not one design's way of doing it."""
     return 29 * w * w + 83 * w
 
 
@@ -83,6 +88,27 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel instantiation from ``nvcc -Xptxas -v``:
+    registers, stack frame and spill bytes."""
+    out, name, props = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m.group(1)
+        elif name and "stack frame" in ln:
+            props = ", ".join(x.strip() for x in ln.split(","))
+        elif name and "Used" in ln and "registers" in ln:
+            w = re.search(r"kernelILi(\d+)E", name)
+            kind = re.search(r"(beam_(?:decode|backtrace)_kernel)", name)
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{kind.group(1) if kind else name}"
+                       f"{f' W={w.group(1)}' if w else ''}: {regs} registers, "
+                       f"{props}")
+            name, props = None, ""
+    return out
 
 
 def synth_signals(rng, lengths, levels):
@@ -138,16 +164,15 @@ def main() -> int:
     _line("build", seconds=f"{time.perf_counter() - t0:.1f}",
           sources=sorted(report) or "cached")
     for name, rep in report.items():
-        for ln in rep["ptxas"].splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"  ptxas {name}: {ln.strip()}")
+        for ln in ptxas_summary(rep["ptxas"]):
+            print(f"  ptxas {name}: {ln}")
 
     # 3. kernel vs plain (random peaked matrices) ------------------------
     rng = np.random.default_rng(0)
     n, t_max = 64, 1500
     compared = differing = 0
     for w, zero in ((1, False), (2, False), (6, False), (8, False),
-                    (6, True)):
+                    (12, False), (16, False), (6, True)):
         mats = rng.dirichlet(np.full(5, 0.2), size=(n, t_max))
         mats = mats.astype(np.float32)
         if zero:
@@ -255,42 +280,46 @@ def main() -> int:
           decode_ms_per_batch=f"{np.mean(dec_ms):.2f}")
 
     small = sigs  # phase 4's four ~4,000-sample reads
-    bc_cpu = load_basecaller(TRAINED, options=BasecallOptions(
-        beam_width=6, read_batch=4, bucket_quantum=4096), device="cpu")
-    want = bc_cpu.basecall_signals(small)
-    got = load_basecaller(TRAINED, options=BasecallOptions(
-        beam_width=6, read_batch=4, bucket_quantum=4096),
-        device=dev).basecall_signals(small)
-    same = sum(a == b for a, b in zip(got, want))
-    _line("e2e-check", reads=len(small), identical_to_cpu=same,
-          lengths=[len(s) for s in got])
-    if same != len(small):
-        _fail("card strings differ from the port's CPU run")
+    for beam in (6, 16):
+        small_opts = BasecallOptions(beam_width=beam, read_batch=4,
+                                     bucket_quantum=4096)
+        want = load_basecaller(TRAINED, options=small_opts,
+                               device="cpu").basecall_signals(small)
+        got = load_basecaller(TRAINED, options=small_opts,
+                              device=dev).basecall_signals(small)
+        same = sum(a == b for a, b in zip(got, want))
+        _line("e2e-check", beam=beam, reads=len(small),
+              identical_to_cpu=same, lengths=[len(s) for s in got])
+        if same != len(small):
+            _fail(f"card strings differ from the port's CPU run at beam "
+                  f"{beam}")
 
     # 6. kernels on the main path's inputs (first batch) -----------------
     mats, t_reads = first
     n_b, t_b, _ = mats.shape
     w = opts.beam_width
-    logm = beam_cuda.log_probs_tn(mats)
+    logm = beam_cuda.log_probs(mats)  # [N, T, 5]
+    logm_tn = logm.permute(1, 2, 0)  # the plain version's [T, 5, N]
     bp_k, nlab_k, sc_k = beam_cuda.beam_decode_cuda(logm, t_reads, w)
-    bp_p, nlab_p, sc_p = plain.beam_search_bp(logm, t_reads, w)
+    bp_p, nlab_p, sc_p = plain.beam_search_bp(logm_tn, t_reads, w)
+    bp_p = bp_p.permute(2, 0, 1)  # [T, W, N] -> the kernel's [N, T, W]
     dec_err = float((sc_k - sc_p).abs().max())
     if not (torch.equal(bp_k, bp_p) and torch.equal(nlab_k, nlab_p)
             and dec_err <= 1e-5):
         _fail("decode kernel disagrees with the plain version on the "
               "main path's inputs")
     rev_k = beam_cuda.beam_backtrace_cuda(bp_k)
-    rev_p = plain.backtrace_batch(bp_k)
+    rev_p = plain.backtrace_batch(bp_k.permute(1, 2, 0))
     if not torch.equal(rev_k, rev_p):
         _fail("backtrace kernel disagrees with the plain version")
     dec_ms = cuda_ms(lambda: beam_cuda.beam_decode_cuda(logm, t_reads, w), 3)
     t0 = time.perf_counter()
-    plain.beam_search_bp(logm, t_reads, w)
+    plain.beam_search_bp(logm_tn, t_reads, w)
     torch.cuda.synchronize()
     dec_plain_ms = (time.perf_counter() - t0) * 1e3
     bt_ms = cuda_ms(lambda: beam_cuda.beam_backtrace_cuda(bp_k), 5)
     t0 = time.perf_counter()
-    plain.backtrace_batch(bp_k)
+    plain.backtrace_batch(bp_k.permute(1, 2, 0))
     torch.cuda.synchronize()
     bt_plain_ms = (time.perf_counter() - t0) * 1e3
 
@@ -301,8 +330,16 @@ def main() -> int:
     bt_bound, bt_by = bound(t_b * n_b * (1 + 4), 3 * t_b * n_b)
     _line("kernels", batch_reads=n_b, T=t_b, beam=w, active_steps=steps,
           decode_ms=f"{dec_ms:.3f}", decode_plain_ms=f"{dec_plain_ms:.1f}",
+          decode_us_per_step=f"{dec_ms * 1e3 / t_b:.3f}",
           backtrace_ms=f"{bt_ms:.3f}",
           backtrace_plain_ms=f"{bt_plain_ms:.1f}")
+    dec16_ms = cuda_ms(
+        lambda: beam_cuda.beam_decode_cuda(logm, t_reads, 16), 3)
+    dec16_bound, _ = bound(20 * steps + 16 * t_b * n_b + 12 * n_b,
+                           decode_ops_per_step(16) * steps)
+    _line("kernels-w16", batch_reads=n_b, T=t_b, beam=16,
+          decode_ms=f"{dec16_ms:.3f}", decode_bound_ms=f"{dec16_bound:.4f}",
+          decode_us_per_step=f"{dec16_ms * 1e3 / t_b:.3f}")
     kernels = [
         {"name": "beam_decode", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",

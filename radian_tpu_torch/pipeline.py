@@ -59,7 +59,7 @@ class BasecallOptions:
     # (quantum rounding above the top entry)
     bucket_lengths: tuple[int, ...] | None = None
     reads_per_fasta: int = 1000
-    decode_backend: str = "auto"  # 'auto' = the CUDA kernel (beam <= 8)
+    decode_backend: str = "auto"  # 'auto' = the CUDA kernel (beam <= 16)
     consensus: str = "reference"
     prep_mode: str = "auto"  # 'auto' | 'fullread' | 'strips' | 'windows'
     chunk_prep: str = "auto"
@@ -182,8 +182,10 @@ class Basecaller:
                 "strips/windows/mean")
         if o.beam_width > MAX_BEAM:
             raise NotImplementedError(
-                f"beam_width {o.beam_width} > {MAX_BEAM} has no CUDA kernel "
-                "yet (ROADMAP.md, Queue 2: beam kernel redesign)")
+                f"beam_width {o.beam_width} > {MAX_BEAM}: the reference's "
+                "int8 backpointers (parent*8 + append+1) overflow from beam "
+                "17 on, so wider beams have no reference to hold the port "
+                "to (ROADMAP.md, Queue 3: int8 backpointer overflow)")
 
     # -- device programs -------------------------------------------------
 

@@ -31,17 +31,17 @@ def test_wrapper_on_cpu_takes_plain_path():
 def test_wrapper_raises_instead_of_falling_back():
     """Only a CPU tensor takes the plain path: anything else must reach
     the kernel or raise (here a meta tensor stands in for a non-CPU one),
-    and beams wider than the kernel's 8 are refused."""
+    and beams wider than the kernels' 16 are refused."""
     import torch
 
     from radian_tpu_torch.ops import beam_cuda
 
     mats = torch.rand(2, 8, 5)
     lengths = torch.full((2,), 8, dtype=torch.int32)
-    with pytest.raises(ValueError, match="beam_width 9"):
-        beam_cuda.beam_search_cuda(mats, lengths, 9)
+    with pytest.raises(ValueError, match="beam_width 17"):
+        beam_cuda.beam_search_cuda(mats, lengths, 17)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         beam_cuda.beam_search_cuda(mats.to("meta"), lengths.to("meta"), 6)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         beam_cuda.beam_backtrace_cuda(
-            torch.zeros((8, 6, 2), dtype=torch.int8, device="meta"))
+            torch.zeros((2, 8, 6), dtype=torch.int8, device="meta"))

@@ -22,7 +22,7 @@ def test_entry_points_default_to_the_card_and_refuse_unported():
             main(["in_dir", "out_dir"])
     params = build_model().state_dict()
     for opts in (dict(decode_type="chunk"), dict(assembly_mode="mean"),
-                 dict(prep_mode="strips"), dict(beam_width=9)):
+                 dict(prep_mode="strips"), dict(beam_width=17)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpipe.Basecaller(params, options=tpipe.BasecallOptions(**opts),
                              device="cpu")

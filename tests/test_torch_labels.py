@@ -19,14 +19,16 @@ def test_backtrace_matches_jax():
     from radian_tpu_torch.ops.beam_search import backtrace_batch
 
     rng = np.random.default_rng(11)
-    t, w, n = 50, 6, 3
-    bp = (rng.integers(0, w, (t, w, n)) * 8
-          + rng.integers(0, 5, (t, w, n))).astype(np.int8)
-    want = np.asarray(jbs.backtrace_batch(bp)).T
-    got = backtrace_batch(torch.from_numpy(bp)).numpy()
-    np.testing.assert_array_equal(got, want)
-    got_w = beam_cuda.beam_backtrace_cuda(torch.from_numpy(bp)).numpy()
-    np.testing.assert_array_equal(got_w, want)
+    for t, w, n in ((50, 6, 3), (70, 16, 2), (33, 1, 2)):
+        bp = (rng.integers(0, w, (t, w, n)) * 8
+              + rng.integers(0, 5, (t, w, n))).astype(np.int8)
+        want = np.asarray(jbs.backtrace_batch(bp)).T
+        got = backtrace_batch(torch.from_numpy(bp)).numpy()
+        np.testing.assert_array_equal(got, want)
+        # the wrapper takes the kernel's [N, T, W] layout
+        got_w = beam_cuda.beam_backtrace_cuda(torch.from_numpy(
+            np.ascontiguousarray(bp.transpose(2, 0, 1)))).numpy()
+        np.testing.assert_array_equal(got_w, want)
 
 
 def test_label_packing_and_rendering_match_jax():
