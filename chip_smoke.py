@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (radian_tpu_torch).
 
-Drives the port's main path, the default global-mode no-LM basecall, on
-one CUDA device at the full width of the repo's trained model
-(bench_data/trained/params.npz, 2,200,581 parameters), and checks it:
+Drives the port's two main paths, the default global-mode no-LM
+basecall and global mode with the bench's 12-mer LM fused in (float32
+and bfloat16 forwards), on one CUDA device at the full width of the
+repo's trained model (bench_data/trained/params.npz, 2,200,581
+parameters), and checks them:
 
   1. device   nvidia-smi name and power limit, torch's device name
-  2. build    nvcc builds every csrc/*.cu kernel from this checkout; ptxas
-              registers, stack frame and spills per kernel instantiation
-  3. kernel   beam-search kernels vs their plain PyTorch version, both on
-              the card: N=64, T up to 1,500, beams 1/2/6/8/12/16 and one
-              case with exact-zero probabilities; labels and n_labels
-              identical, scores within 1e-5 absolute
+  2. build    nvcc builds every csrc/*.cu kernel from this checkout (one
+              nvcc a source, in parallel); ptxas registers, stack frame and
+              spills per kernel instantiation
+  3. kernel   no-LM beam-search kernels vs their plain PyTorch version,
+              both on the card: N=64, T up to 1,500, beams 1/2/6/8/12/16
+              and one case with exact-zero probabilities; labels and
+              n_labels identical, scores within 1e-5 absolute
+  3b. lm      the LM-fused decode kernel vs its plain version the same
+              way (lengths down to 1 and 0): beams 1/6/16, ctx 1/3/11/12, dense and packed tables in
+              float32 and bfloat16, gate thresholds (0.5, 0.5) and
+              (0.0, 10.0), one exact-zero case; and the count of reads
+              whose LM string differs from the no-LM one (must be > 0)
   4. model    SigToSeq on the card (TF32 off) vs the port's CPU run,
               4 reads of ~4,000 samples; max |dp| <= 1e-4
   5. e2e      Basecaller (beam 6, read_batch 256, bucket quantum 4096) on
@@ -20,10 +28,21 @@ one CUDA device at the full width of the repo's trained model
               Msamples/s, forward/decode ms per batch, peak memory; every
               kernel must have launched; card strings == CPU strings on a
               small input at beams 6 and 16
-  6. kernels  each kernel vs its plain version on the inputs the main
+  5b. e2e-lm  the same reads and options with the bench's LM (rng 42,
+              ctx 11, 200,000 contexts, concentration 0.2; dense, its
+              packed bound being over the cut), once with the float32
+              forward and tables, once with the bfloat16 forward and
+              (auto) bfloat16 tables; the LM decode and backtrace kernels
+              must launch and the no-LM decode must not; float32 card
+              strings == CPU strings on phase 4's reads; bfloat16 strings
+              vs the CPU's bfloat16 run and max |dp| bf16 vs f32 reported
+  6. kernels  each no-LM kernel vs its plain version on the inputs the main
               path gave it (the first batch), timed with CUDA events,
               beside its bound (bytes or operations over the H100's peaks);
               the decode kernel also timed at beam 16 on that batch
+  6b. lm-kernels  the LM decode kernel vs its plain version on the first
+              LM batch, and timed there with dense float32, dense bfloat16
+              and packed float32/bfloat16 tables of the same LM
 
 Prints the nvidia-smi line, one JSON line of kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script
@@ -48,6 +67,20 @@ TRAINED = REPO / "bench_data" / "trained" / "params.npz"
 # H100 SXM published peaks at 700 W (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# phase 6b: the plain LM decode runs this many steps of the first batch
+LM_PLAIN_STEPS = 8192
+# phase 3b: (beam, ctx_len, packed, bf16 tables, (s_thr, r_thr), zeros)
+LM_CASES = ((6, 11, False, False, (0.5, 0.5), False),
+            (6, 11, False, True, (0.0, 10.0), False),
+            (16, 12, True, False, (0.5, 0.5), False),
+            (1, 1, False, False, (0.0, 10.0), False),
+            (6, 3, True, True, (0.5, 0.5), False),
+            (16, 3, False, True, (0.0, 10.0), False),
+            (6, 12, True, True, (0.0, 10.0), True))
+# bytes of one LM row lookup, by (packed, bf16): dense probs + entropy;
+# packed l1 (word, rank) + vals row
+ROW_BYTES = {(False, False): 20, (False, True): 10, (True, False): 28,
+             (True, True): 18}
 
 
 def _line(phase: str, **kv) -> None:
@@ -84,6 +117,14 @@ def decode_ops_per_step(w: int) -> int:
     return 29 * w * w + 83 * w
 
 
+def lm_ops_per_step(w: int) -> int:
+    """Operations the LM fusion adds to one read's decode step: per beam
+    two fused 4-base distributions (an add, two multiplies and a log a
+    base), the gates, the context shift and one row lookup (~47·W); per
+    step the signal's sum, renormalisation, entropy and five logs (~35)."""
+    return 47 * w + 35
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
@@ -102,12 +143,300 @@ def ptxas_summary(log: str) -> list[str]:
             props = ", ".join(x.strip() for x in ln.split(","))
         elif name and "Used" in ln and "registers" in ln:
             w = re.search(r"kernelILi(\d+)E", name)
-            kind = re.search(r"(beam_(?:decode|backtrace)_kernel)", name)
+            kind = re.search(r"(beam_(?:decode_lm|decode|backtrace)_kernel)",
+                             name)
+            table = re.search(r"(Dense|Packed)TableI(f|\d+__nv_bfloat16)E",
+                              name)
             regs = re.search(r"Used (\d+) registers", ln).group(1)
             out.append(f"{kind.group(1) if kind else name}"
-                       f"{f' W={w.group(1)}' if w else ''}: {regs} registers, "
-                       f"{props}")
+                       f"{f' W={w.group(1)}' if w else ''}"
+                       + (f" {table.group(1).lower()} "
+                          f"{'f32' if table.group(2) == 'f' else 'bf16'}"
+                          if table else "")
+                       + f": {regs} registers, {props}")
             name, props = None, ""
+    return out
+
+
+def random_lm(rng, ctx_len: int, real_frac: float):
+    """A KmerLM over every context of ``ctx_len`` bases: a share
+    ``real_frac`` of them real, with Dirichlet(0.2) rows (often under the
+    0.5 entropy gate), the rest uniform."""
+    from radian_tpu_torch.lm.kmer import KmerLM, _entropy_rows
+
+    mask = rng.random(4 ** ctx_len) < real_frac
+    probs = np.full((len(mask), 4), 0.25, np.float32)
+    probs[mask] = rng.dirichlet(np.full(4, 0.2), int(mask.sum()))
+    return KmerLM(ctx_len, probs, _entropy_rows(probs.astype(np.float64)),
+                  mask)
+
+
+def lm_fusion(lm, packed: bool, bf16: bool, dev, thr=(0.5, 0.5)):
+    """The decode's LMFusion for ``lm`` on ``dev``: dense or packed
+    (``lm.compressed()``), float32 or bfloat16 values."""
+    import torch
+
+    from radian_tpu_torch.ops.beam_search import LMFusion
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if packed:
+        l1, vals = lm.compressed()
+        t1, t2 = torch.from_numpy(l1), torch.from_numpy(vals).to(dtype)
+    else:
+        t1 = torch.from_numpy(lm.probs).to(dtype)
+        t2 = torch.from_numpy(lm.entropy).to(dtype)
+    return LMFusion(t1.to(dev), t2.to(dev), packed, lm.context_len, *thr)
+
+
+def table_bytes(fusion) -> int:
+    return sum(t.numel() * t.element_size() for t in (fusion.t1, fusion.t2))
+
+
+def plain_lm_decode(mats, lengths, w, fusion):
+    """The plain LM decode on ``[N, T, 5]`` probabilities, in the
+    kernel's layouts."""
+    import torch
+
+    from radian_tpu_torch.ops import beam_search as plain
+
+    probs_tn = mats.permute(1, 2, 0)
+    bp, nlab, score = plain.beam_search_bp(torch.log(probs_tn), lengths, w,
+                                           fusion, probs_tn)
+    return bp.permute(2, 0, 1), nlab, score
+
+
+def check_lm_kernel(dev, n: int, t_max: int, cases) -> None:
+    """Phase 3b: the LM decode kernel (and the backtrace) vs the plain
+    version on Dirichlet(0.2) matrices; fails on any difference, and
+    unless the LM changes some strings against the no-LM kernels."""
+    import torch
+
+    from radian_tpu_torch.ops import beam_cuda
+    from radian_tpu_torch.ops import beam_search as plain
+
+    rng = np.random.default_rng(5)
+    lms = {}
+    compared = differing = changed = 0
+    for w, ctx, packed, bf16, thr, zero in cases:
+        if ctx not in lms:  # ctx 12: a quarter real; shorter: all real
+            lms[ctx] = random_lm(rng, ctx, 0.25 if ctx >= 12 else 1.0)
+        fusion = lm_fusion(lms[ctx], packed, bf16, dev, thr)
+        mats = rng.dirichlet(np.full(5, 0.2), size=(n, t_max))
+        mats = mats.astype(np.float32)
+        if zero:
+            mats[rng.random(mats.shape) < 0.2] = 0.0
+        lengths = rng.integers(1, t_max + 1, n).astype(np.int32)
+        lengths[:3] = t_max, 0, 1
+        m = torch.from_numpy(mats).to(dev)
+        ln = torch.from_numpy(lengths).to(dev)
+        bp_k, nlab_k, sc_k = beam_cuda.beam_decode_lm_cuda(m, ln, w, fusion)
+        rev_k = beam_cuda.beam_backtrace_cuda(bp_k)
+        bp_p, nlab_p, sc_p = plain_lm_decode(m, ln, w, fusion)
+        rev_p = plain.backtrace_batch(bp_p.permute(1, 2, 0))
+        rev_nolm, _, _ = beam_cuda.beam_search_cuda(m, ln, w)
+        torch.cuda.synchronize()
+        bad = ((bp_k != bp_p).flatten(1).any(1) | (rev_k != rev_p).any(1)
+               | (nlab_k != nlab_p) | ((sc_k - sc_p).abs() > 1e-5))
+        moved = int((rev_k != rev_nolm).any(1).sum())
+        compared += n
+        differing += int(bad.sum())
+        changed += moved
+        _line("lm", beam=w, ctx=ctx, table=f"{'packed' if packed else 'dense'}"
+              f"-{'bf16' if bf16 else 'f32'}", thresholds=thr, zero_probs=zero,
+              reads=n, T=t_max, differing=int(bad.sum()),
+              max_abs_score_err=float((sc_k - sc_p).abs().max()),
+              strings_changed_by_lm=moved)
+    _line("lm", reads_compared=compared, reads_differing=differing,
+          strings_changed_by_lm=changed)
+    if differing:
+        _fail(f"LM decode kernel disagrees with the plain version on "
+              f"{differing}/{compared} reads")
+    if not changed:
+        _fail("the LM changed no string: the fusion never fired")
+
+
+def e2e_lm(dev, flat, reads, small, opts):
+    """Phase 5b: the Basecaller with the bench's LM on the card, float32
+    then bfloat16.  Returns the float32 run's launch counts, its first
+    batch ``(mats, t_reads)`` and the two runs' LM tables."""
+    import torch
+
+    from radian_tpu_torch.lm.kmer import build_dense_tables, random_kmer_model
+    from radian_tpu_torch.models.checkpoint import params_from_flax
+    from radian_tpu_torch.models.sig2seq import build_model
+    from radian_tpu_torch.ops import beam_cuda
+    from radian_tpu_torch.ops.preprocess import mad_normalise
+    from radian_tpu_torch.pipeline import (
+        Basecaller,
+        BasecallOptions,
+        _packed_lm_bound_bytes,
+    )
+
+    lm = build_dense_tables(random_kmer_model(
+        np.random.default_rng(42), context_len=11, n_contexts=200_000,
+        concentration=0.2), 11)
+    params = params_from_flax(flat)
+    n_samples = sum(len(r) for r in reads)
+    small_opts = BasecallOptions(beam_width=opts.beam_width, read_batch=4,
+                                 bucket_quantum=4096)
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        bc = Basecaller(params, lm=lm, options=opts, compute_dtype=dtype,
+                        device=dev)
+        fusion = bc.lm_fusion
+        bc.basecall_signals(reads)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in (beam_cuda.beam_decode_cuda, beam_cuda.beam_decode_lm_cuda,
+                  beam_cuda.beam_backtrace_cuda):
+            k.launches = 0
+        t0 = time.perf_counter()
+        seqs = bc.basecall_signals(reads)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"beam_decode": beam_cuda.beam_decode_cuda.launches,
+                    "beam_decode_lm": beam_cuda.beam_decode_lm_cuda.launches,
+                    "beam_backtrace": beam_cuda.beam_backtrace_cuda.launches}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        _line("e2e-lm", forward=name, reads=len(reads),
+              batches=len(bc.batches(reads)),
+              reads_per_s=f"{len(reads) / wall:.2f}",
+              msamples_per_s=f"{n_samples / wall / 1e6:.3f}",
+              wall_s=f"{wall:.3f}", peak_mem_gb=f"{peak_gb:.2f}",
+              lm_layout="packed" if fusion.packed else "dense",
+              lm_packed_bound_bytes=_packed_lm_bound_bytes(lm),
+              lm_table_dtype=str(fusion.t2.dtype).replace("torch.", ""),
+              lm_table_bytes=table_bytes(fusion),
+              launches=json.dumps(launches, separators=(",", ":")))
+        if (not launches["beam_decode_lm"] or not launches["beam_backtrace"]
+                or launches["beam_decode"]):
+            _fail(f"the LM path did not run through its kernels: {launches}")
+        if any(not s for s in seqs):
+            _fail("a read came back empty or skipped on the LM path")
+        fwd_ms, dec_ms, first = [], [], None
+        flop_per_sample = 2 * sum(p.numel() for p in bc.model.parameters()
+                                  if p.dim() > 1)
+        for idxs, bucket in bc.batches(reads):
+            sig_t, len_t = bc.pad_batch(idxs, bucket, reads)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mats, t_reads, _ = bc.forward(sig_t, len_t)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            bc.decode(mats, t_reads)
+            torch.cuda.synchronize()
+            fwd_ms.append((t1 - t0) * 1e3)
+            dec_ms.append((time.perf_counter() - t1) * 1e3)
+            tflops = flop_per_sample * sig_t.numel() / (fwd_ms[-1] * 1e9)
+            _line("e2e-lm-batch", forward=name, bucket=bucket,
+                  reads=len(idxs), forward_ms=f"{fwd_ms[-1]:.2f}",
+                  decode_ms=f"{dec_ms[-1]:.2f}",
+                  forward_tflops=f"{tflops:.1f}",
+                  decode_us_per_step=f"{dec_ms[-1] * 1e3 / bucket:.2f}")
+            if first is None:
+                first = (mats, t_reads.to(torch.int32))
+            else:
+                del mats, t_reads
+        _line("e2e-lm", forward=name,
+              forward_ms_per_batch=f"{np.mean(fwd_ms):.2f}",
+              decode_ms_per_batch=f"{np.mean(dec_ms):.2f}")
+        want = Basecaller(params, lm=lm, options=small_opts,
+                          compute_dtype=dtype,
+                          device="cpu").basecall_signals(small)
+        got = Basecaller(params, lm=lm, options=small_opts,
+                         compute_dtype=dtype,
+                         device=dev).basecall_signals(small)
+        same = sum(a == b for a, b in zip(got, want))
+        _line("e2e-lm-check", forward=name, reads=len(small),
+              identical_to_cpu=same, lengths=[len(x) for x in got])
+        if name == "f32":
+            if same != len(small):
+                _fail("card strings differ from the port's CPU run with "
+                      "the LM (float32)")
+            out = {"launches": launches, "first": first,
+                   "fusions": {"f32": fusion}}
+        else:
+            out["fusions"]["bf16"] = fusion
+        del bc
+    # bfloat16 vs float32 probabilities on the card, phase 4's reads
+    l_max = max(len(x) for x in small)
+    padded = np.zeros((len(small), l_max), np.int16)
+    for i, x in enumerate(small):
+        padded[i, :len(x)] = x
+    lens = torch.tensor([len(x) for x in small], dtype=torch.int32)
+    norm, _ = mad_normalise(torch.from_numpy(padded), lens)
+    probs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_model(compute_dtype=dtype)
+        model.load_state_dict(params)
+        model.to(dev).eval()
+        with torch.inference_mode():
+            probs[dtype] = model(norm.to(dev)[..., None], probs=True)
+    _line("e2e-lm-check", max_abs_dp_bf16_vs_f32=float(
+        (probs[torch.float32] - probs[torch.bfloat16]).abs().max()))
+    out["lm"] = lm
+    return out
+
+
+def lm_kernels(dev, run, w: int) -> dict:
+    """Phase 6b: the LM decode kernel vs its plain version on the first
+    batch of the float32 LM run (its first LM_PLAIN_STEPS steps), then
+    timed on the whole batch with each table layout beside its bound."""
+    import torch
+
+    from radian_tpu_torch.ops import beam_cuda
+
+    mats, t_reads = run["first"]
+    fusion = run["fusions"]["f32"]
+    n_b, t_b, _ = mats.shape
+    k = min(t_b, LM_PLAIN_STEPS)
+    m_k = mats[:, :k].contiguous()
+    l_k = torch.clamp(t_reads, max=k)
+    bp_k, nlab_k, sc_k = beam_cuda.beam_decode_lm_cuda(m_k, l_k, w, fusion)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp_p, nlab_p, sc_p = plain_lm_decode(m_k, l_k, w, fusion)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((sc_k - sc_p).abs().max())
+    if not (torch.equal(bp_k, bp_p) and torch.equal(nlab_k, nlab_p)
+            and err <= 1e-5):
+        _fail("LM decode kernel disagrees with the plain version on the "
+              "LM path's first batch")
+    k_ms = cuda_ms(lambda: beam_cuda.beam_decode_lm_cuda(m_k, l_k, w, fusion),
+                   3)
+    _line("lm-kernels", batch_reads=n_b, plain_steps=k, T=t_b, beam=w,
+          max_abs_score_err=err, kernel_ms=f"{k_ms:.3f}",
+          plain_ms=f"{plain_ms:.1f}")
+    # the same LM in each layout; packed rows equal dense rows bit for bit
+    tables = {("dense", "f32"): fusion,
+              ("dense", "bf16"): run["fusions"]["bf16"],
+              ("packed", "f32"): lm_fusion(run["lm"], True, False, dev),
+              ("packed", "bf16"): lm_fusion(run["lm"], True, True, dev)}
+    active = (torch.arange(t_b, device=dev)[None, :]
+              < t_reads.long()[:, None])[..., None]  # [N, T, 1]
+    steps = int(active.sum())
+    out = {"plain_ms": plain_ms, "max_abs_err": err, "plain_steps": k}
+    bps = {}
+    for (layout, dt), f in tables.items():
+        bps[layout, dt] = bp = beam_cuda.beam_decode_lm_cuda(
+            mats, t_reads, w, f)[0]
+        n_ext = int((((bp.int() & 7) != 0) & active).sum())
+        ms = cuda_ms(
+            lambda: beam_cuda.beam_decode_lm_cuda(mats, t_reads, w, f), 3)
+        b_ms, b_by = bound(
+            20 * steps + w * t_b * n_b + 8 * n_b
+            + ROW_BYTES[layout == "packed", dt == "bf16"] * n_ext,
+            (decode_ops_per_step(w) + lm_ops_per_step(w)) * steps)
+        out[layout, dt] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+        _line("lm-kernels", table=f"{layout}-{dt}",
+              table_bytes=table_bytes(f), active_steps=steps,
+              row_lookups=n_ext, decode_ms=f"{ms:.3f}",
+              decode_us_per_step=f"{ms * 1e3 / t_b:.3f}",
+              bound_ms=f"{b_ms:.4f}", bound_by=b_by)
+    for dt in ("f32", "bf16"):
+        if not torch.equal(bps["dense", dt], bps["packed", dt]):
+            _fail(f"dense and packed {dt} tables decode differently")
     return out
 
 
@@ -195,6 +524,9 @@ def main() -> int:
     if differing:
         _fail(f"beam kernel disagrees with the plain version on "
               f"{differing}/{compared} reads")
+
+    # 3b. LM kernel vs plain ------------------------------------------------
+    check_lm_kernel(dev, n, t_max, LM_CASES)
 
     # 4. model on the card vs the CPU ------------------------------------
     flat = load_params_npz(TRAINED)
@@ -294,6 +626,9 @@ def main() -> int:
             _fail(f"card strings differ from the port's CPU run at beam "
                   f"{beam}")
 
+    # 5b. end to end with the LM -----------------------------------------
+    lm_run = e2e_lm(dev, flat, reads, small, opts)
+
     # 6. kernels on the main path's inputs (first batch) -----------------
     mats, t_reads = first
     n_b, t_b, _ = mats.shape
@@ -340,6 +675,9 @@ def main() -> int:
     _line("kernels-w16", batch_reads=n_b, T=t_b, beam=16,
           decode_ms=f"{dec16_ms:.3f}", decode_bound_ms=f"{dec16_bound:.4f}",
           decode_us_per_step=f"{dec16_ms * 1e3 / t_b:.3f}")
+
+    # 6b. the LM kernel on the LM path's first batch -----------------------
+    lmk = lm_kernels(dev, lm_run, w)
     kernels = [
         {"name": "beam_decode", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",
@@ -353,6 +691,14 @@ def main() -> int:
          "launches": launches["beam_backtrace"], "max_abs_err": 0.0,
          "ms": bt_ms, "plain_ms": bt_plain_ms, "bound_ms": bt_bound,
          "bound_by": bt_by, "library_ms": None},
+        {"name": "beam_decode_lm", "route": "cuda",
+         "source": "radian_tpu_torch/csrc/beam_search_lm.cu",
+         "replaces": "radian_tpu/ops/beam_search.py:176",
+         "launches": lm_run["launches"]["beam_decode_lm"],
+         "max_abs_err": lmk["max_abs_err"],
+         "ms": lmk["dense", "f32"]["ms"], "plain_ms": lmk["plain_ms"],
+         "bound_ms": lmk["dense", "f32"]["bound_ms"],
+         "bound_by": lmk["dense", "f32"]["bound_by"], "library_ms": None},
     ]
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi)

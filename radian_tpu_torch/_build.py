@@ -1,9 +1,10 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (the hash
-is of the source and the flags, so an edited source never loads a stale
-library), compiled for Hopper (``sm_90a``) with a plain C interface.  The
-build runs at first use, never at import; a failed build raises.
+is of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source never loads a stale library), compiled for Hopper
+(``sm_90a``) with a plain C interface.  The build runs at first use,
+never at import; a failed build raises.
 """
 
 from __future__ import annotations
@@ -26,11 +27,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # exported C functions: name -> (argtypes, restype)
 _SIGNATURES = {
     "beam_search": {
         "radian_beam_decode": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
         "radian_beam_backtrace": ([_P, _P, _I, _I, _I, _P], _I),
+        "radian_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "beam_search_lm": {
+        "radian_beam_decode_lm": ([_P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P,
+                                   _I, _I, _I, _P], _I),
         "radian_cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -50,8 +57,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

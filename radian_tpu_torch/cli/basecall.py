@@ -5,7 +5,8 @@ whose paths this package has not ported yet raise
 ``NotImplementedError`` naming the ROADMAP item.
 
 Usage:
-    python -m radian_tpu_torch.cli.basecall FAST5_DIR FASTA_DIR --device cuda
+    python -m radian_tpu_torch.cli.basecall FAST5_DIR FASTA_DIR --device cuda \
+        [--rna-model LM.json] [--compute-dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "--read-batch bucketing)")
     p.add_argument("--outlier-clip", default=4, type=float)
     p.add_argument("--rna-model", default="None",
-                   help="12-mer LM json path, or 'None' to disable fusion "
-                        "(only 'None' is ported)")
+                   help="k-mer LM json path (the reference's format, "
+                        "contexts of --context-len bases), or 'None' to "
+                        "decode without LM fusion")
     p.add_argument("--sig-model", default=None,
                    help="checkpoint: flax-layout .npz, or omit for seeded "
                         "init")
@@ -45,7 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--assembly-mode", choices=["first", "mean"],
                    default="first")
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
-                   default="float32")
+                   default="float32",
+                   help="forward dtype; bfloat16 also stores the LM tables "
+                        "in bfloat16")
     p.add_argument("--prep-mode",
                    choices=["auto", "fullread", "strips", "windows"],
                    default="auto",

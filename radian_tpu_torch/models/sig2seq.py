@@ -5,6 +5,11 @@
 blank} per input sample.  The conv stack is ``F.conv1d`` (cuDNN on the
 card) and the head is two matrix products: both were plain XLA on the
 TPU, not Pallas kernels.
+
+``compute_dtype=torch.bfloat16`` runs the convolutions and the head in
+bfloat16 like the flax model's ``compute_dtype``: parameters stay
+float32 and are cast per layer, the residual sums run in float32 (see
+``tcn.py``), and the logits are cast to float32 before the softmax.
 """
 
 from __future__ import annotations
@@ -25,8 +30,13 @@ class SigToSeq(nn.Module):
                  nb_stacks: int = 1, dilations=(1, 2, 4, 8, 16, 32),
                  padding: str = "causal", use_skip_connections: bool = False,
                  dropout_rate: float = 0.0, return_sequences: bool = True,
-                 use_batch_norm: bool = False):
+                 use_batch_norm: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or "
+                             "bfloat16")
+        self.compute_dtype = compute_dtype
         self.tcn = TCN(nb_filters, kernel_size, nb_stacks, dilations,
                        padding, use_skip_connections, dropout_rate,
                        return_sequences, use_batch_norm)
@@ -55,16 +65,27 @@ class SigToSeq(nn.Module):
             # strings, would drift from the f32 reference.
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        h = self.tcn(x.float().transpose(1, 2))
+        dt = self.compute_dtype
+        h = self.tcn(x.to(dt).transpose(1, 2))
         h = h.transpose(-1, -2) if h.dim() == 3 else h  # [N, T, C]
-        h = F.relu(self.dense_relu(h))
-        logits = self.dense_out(h).float()
+        h = F.relu(_dense(h, self.dense_relu, dt))
+        logits = _dense(h, self.dense_out, dt).float()
         if probs:
             return torch.softmax(logits, dim=-1)
         return torch.log_softmax(logits, dim=-1)
 
 
-def build_model(config: DotDict | None = None) -> SigToSeq:
+def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
+    """``layer`` in ``dtype``; in bfloat16 the product is rounded before
+    its bias is added, as flax's ``nn.Dense`` does."""
+    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+    if dtype == torch.float32:
+        return F.linear(x, w, b)
+    return F.linear(x, w) + b
+
+
+def build_model(config: DotDict | None = None,
+                compute_dtype: torch.dtype = torch.float32) -> SigToSeq:
     """Construct a SigToSeq from a config (defaults to reference parity)."""
     cfg = config if config is not None else default_config()
     m = cfg.model
@@ -80,6 +101,7 @@ def build_model(config: DotDict | None = None) -> SigToSeq:
         dropout_rate=m.tcn.dropout_rate,
         return_sequences=m.tcn.return_sequences,
         use_batch_norm=m.tcn.use_batch_norm,
+        compute_dtype=compute_dtype,
     )
 
 

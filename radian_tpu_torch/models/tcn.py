@@ -6,6 +6,14 @@ shortcut only where the channel count changes (block 0: 1 → 256), and the
 residual add + ReLU in float32.  With the default config the receptive
 field is ``1 + 2*(k-1)*sum(dilations) = 253`` samples.
 
+Compute dtype: the stack runs in the dtype of its input (float32, or
+bfloat16 for ``compute_dtype=bfloat16``); parameters stay float32 and are
+cast to it per convolution, as the flax module's ``dtype``/``param_dtype``
+do; in bfloat16 the bias is added after the convolution is rounded, as
+flax adds it (fused into the convolution, the trained model's
+probabilities on the CPU sat up to 3.8e-2 from flax's instead of
+1.1e-2).
+
 Layout: the public boundary is ``[N, T, C]`` like the JAX module; inside,
 activations are ``[N, C, T]``, the layout ``F.conv1d`` takes, so the stack
 transposes once on the way in and once on the way out.
@@ -53,7 +61,12 @@ class CausalConv1D(nn.Module):
 
     def forward(self, x):
         x = F.pad(x, ((self.kernel_size - 1) * self.dilation, 0))
-        return F.conv1d(x, self.weight, self.bias, dilation=self.dilation)
+        w = self.weight.to(x.dtype)
+        if x.dtype == torch.float32:
+            return F.conv1d(x, w, self.bias, dilation=self.dilation)
+        # flax rounds a bfloat16 convolution before adding its bias
+        return (F.conv1d(x, w, None, dilation=self.dilation)
+                + self.bias.to(x.dtype)[:, None])
 
 
 class ResidualBlock(nn.Module):

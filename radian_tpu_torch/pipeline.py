@@ -3,14 +3,16 @@
 Reads are sorted by length, grouped into length buckets and fixed-size
 padded batches, and each batch runs on the device:
 
-  MAD-normalise → one causal full-read TCN forward → "first"-assembly
-  renormalise/trim → CTC beam search (the CUDA kernel) → nibble-packed
-  labels
+  MAD-normalise → one causal full-read TCN forward (float32 or
+  bfloat16) → "first"-assembly renormalise/trim → CTC beam search (a
+  CUDA kernel, with the k-mer LM fused in when one is given) →
+  nibble-packed labels
 
 while the host does fast5 ingest, padding, label rendering and fasta
-output.  This slice ports the default CLI run: global decode, no LM,
-'first' assembly via the full-read forward, float32.  Options outside it
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+output.  Ported so far: global decode with or without the LM (dense or
+packed tables, float32 or bfloat16), 'first' assembly via the full-read
+forward.  Options outside it raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -26,10 +28,16 @@ import torch
 from radian_tpu_torch.config import DotDict, default_config
 from radian_tpu_torch.io.fast5 import Fast5Read, iter_fast5_dir
 from radian_tpu_torch.io.fasta import FastaWriter
+from radian_tpu_torch.lm.kmer import KmerLM, load_kmer_json
 from radian_tpu_torch.models.checkpoint import load_params_npz, params_from_flax
 from radian_tpu_torch.models.sig2seq import SigToSeq, build_model
-from radian_tpu_torch.ops.beam_cuda import MAX_BEAM, beam_search_cuda
+from radian_tpu_torch.ops.beam_cuda import (
+    MAX_BEAM,
+    beam_search_cuda,
+    beam_search_lm_cuda,
+)
 from radian_tpu_torch.ops.beam_search import (
+    LMFusion,
     labels_to_seq,
     pack_labels,
     unpack_labels,
@@ -37,12 +45,33 @@ from radian_tpu_torch.ops.beam_search import (
 from radian_tpu_torch.ops.preprocess import bucket_length, mad_normalise
 
 
+# Packed-vs-dense LM layout cut, in bytes of the packed tables: the JAX
+# package's cut (radian_tpu/pipeline.py PACKED_LM_MAX_BYTES), chosen from
+# its TPU measurements and kept here because the two layouts give
+# bit-identical rows, so the cut changes no output.  It is not measured
+# on this card.  Override per run with BasecallOptions.packed_lm_max_bytes.
+PACKED_LM_MAX_BYTES = 3_000_000
+
+
+def _packed_lm_bound_bytes(lm: KmerLM) -> int:
+    """Upper bound on ``lm.compressed()``'s size without building it: l1
+    is ``ceil(R/32) × 8`` bytes, vals ``(n_real + 1) × 20``; exact with a
+    ``real_mask``, else every row is assumed distinct."""
+    r = lm.n_contexts
+    l1_bytes = -(-r // 32) * 8
+    n_real = int(lm.real_mask.sum()) if lm.real_mask is not None else r
+    return l1_bytes + (n_real + 1) * 20
+
+
+_TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 @dataclasses.dataclass(frozen=True)
 class BasecallOptions:
     """Decode options; same fields and defaults as the JAX package's
     ``BasecallOptions`` (reference basecall.py:19-37 CLI defaults).  The
-    chunk-mode and LM fields are accepted for symmetry and unused by this
-    slice, which rejects the values that would need them."""
+    chunk-mode fields are accepted for symmetry and unused by this slice,
+    which rejects the values that would need them."""
 
     chunk_len: int = 1024
     step_size: int = 128
@@ -68,8 +97,11 @@ class BasecallOptions:
     chunk_crop: bool = True
     chunk_crop_stride: int = 2
     chunk_lm: bool = False
+    # packed-LM layout cut in bytes (None = PACKED_LM_MAX_BYTES)
     packed_lm_max_bytes: int | None = None
-    lm_table_dtype: str = "auto"
+    # LM table storage: 'auto' = bfloat16 when the forward runs in
+    # bfloat16, float32 otherwise; the fusion runs in float32 on the rows
+    lm_table_dtype: str = "auto"  # 'auto' | 'float32' | 'bfloat16'
 
 
 def unported(what: str, item: str):
@@ -136,13 +168,20 @@ def _prep_model_assemble_fullread(model: SigToSeq, signals, lengths, *,
 
 
 class Basecaller:
-    """Bucketed, batched global-mode basecaller on one device."""
+    """Bucketed, batched global-mode basecaller on one device.
+
+    ``lm`` (a ``KmerLM`` of ``options.context_len``) fuses the k-mer LM
+    into the decode; its tables go to the device once, here, packed
+    (``KmerLM.compressed()``) when that is under
+    ``options.packed_lm_max_bytes`` and dense otherwise, in
+    ``options.lm_table_dtype``.
+    """
 
     def __init__(
         self,
         params: dict[str, torch.Tensor],
         config: DotDict | None = None,
-        lm=None,
+        lm: KmerLM | None = None,
         options: BasecallOptions | None = None,
         compute_dtype: torch.dtype = torch.float32,
         mesh=None,
@@ -150,15 +189,12 @@ class Basecaller:
     ):
         self.config = config if config is not None else default_config()
         self.options = o = options or BasecallOptions()
-        if lm is not None:
-            raise unported("LM fusion (lm / --rna-model)",
-                           "LM-fused decode")
-        if compute_dtype != torch.float32:
-            raise unported(f"compute_dtype={compute_dtype}", "bf16 compute")
         if mesh is not None:
             raise unported("mesh", "multi-GPU")
         if o.decode_type != "global":
             raise unported(f"decode_type={o.decode_type!r}", "chunk modes")
+        if o.chunk_lm:
+            raise unported("chunk_lm", "chunk modes")
         if o.assembly_mode != "first":
             raise unported(f"assembly_mode={o.assembly_mode!r}",
                            "strips/windows/mean")
@@ -169,7 +205,9 @@ class Basecaller:
             raise ValueError(f"decode_backend={o.decode_backend!r}: the "
                              "port decodes with its CUDA kernel ('auto')")
         self.device = resolve_device(device)
-        self.model = build_model(self.config)
+        self.lm_fusion = (None if lm is None
+                          else self._lm_tables(lm, compute_dtype))
+        self.model = build_model(self.config, compute_dtype)
         self.model.load_state_dict(params)
         self.model.to(self.device).eval()
         rf = self.model.receptive_field
@@ -187,6 +225,36 @@ class Basecaller:
                 "17 on, so wider beams have no reference to hold the port "
                 "to (ROADMAP.md, Queue 3: int8 backpointer overflow)")
 
+    def _lm_tables(self, lm: KmerLM, compute_dtype) -> LMFusion:
+        """The LM's tables on the device, in the layout and dtype the
+        options pick (radian_tpu/pipeline.py:654-688)."""
+        o = self.options
+        if lm.context_len != o.context_len:
+            raise ValueError(f"LM context_len {lm.context_len} != "
+                             f"options.context_len {o.context_len}")
+        if o.lm_table_dtype == "auto":
+            dtype = (torch.bfloat16 if compute_dtype == torch.bfloat16
+                     else torch.float32)
+        elif o.lm_table_dtype in _TABLE_DTYPES:
+            dtype = _TABLE_DTYPES[o.lm_table_dtype]
+        else:
+            raise ValueError(f"lm_table_dtype={o.lm_table_dtype!r}: 'auto', "
+                             "'float32' or 'bfloat16'")
+        cut = (o.packed_lm_max_bytes if o.packed_lm_max_bytes is not None
+               else PACKED_LM_MAX_BYTES)
+        t1 = t2 = None
+        if _packed_lm_bound_bytes(lm) < cut:
+            l1, vals = lm.compressed()
+            if l1.nbytes + vals.nbytes < cut:
+                # l1 (bitmap words and ranks) stays int32
+                t1, t2 = torch.from_numpy(l1), torch.from_numpy(vals).to(dtype)
+        packed = t1 is not None
+        if not packed:
+            t1 = torch.from_numpy(lm.probs).to(dtype)
+            t2 = torch.from_numpy(lm.entropy).to(dtype)
+        return LMFusion(t1.to(self.device), t2.to(self.device), packed,
+                        o.context_len, o.sig_threshold, o.rna_threshold)
+
     # -- device programs -------------------------------------------------
 
     @torch.inference_mode()
@@ -198,9 +266,13 @@ class Basecaller:
     @torch.inference_mode()
     def decode(self, mats: torch.Tensor, t_reads: torch.Tensor):
         """Assembled matrices → ``(packed labels [N, T/2] uint8, n_labels)``."""
-        # the kernel; its wrapper runs the plain version on CPU tensors
-        rev, n_lab, _ = beam_search_cuda(mats, t_reads,
-                                         self.options.beam_width)
+        # the kernels; their wrappers run the plain version on CPU tensors
+        if self.lm_fusion is None:
+            rev, n_lab, _ = beam_search_cuda(mats, t_reads,
+                                             self.options.beam_width)
+        else:
+            rev, n_lab, _ = beam_search_lm_cuda(
+                mats, t_reads, self.options.beam_width, self.lm_fusion)
         return pack_labels(rev), n_lab
 
     # -- host orchestration ----------------------------------------------
@@ -343,11 +415,10 @@ def load_basecaller(
 ) -> Basecaller:
     """Build a Basecaller from file paths (None checkpoint → seeded init).
 
-    ``checkpoint`` is a flax-layout ``.npz`` (the JAX package's format).
+    ``checkpoint`` is a flax-layout ``.npz`` (the JAX package's format);
+    ``rna_model`` the reference's k-mer LM JSON (None or 'None': no LM).
     """
     device = resolve_device(device)
-    if rna_model is not None and str(rna_model) != "None":
-        raise unported("LM fusion (lm / --rna-model)", "LM-fused decode")
     if config_path is None:
         config = default_config()
     else:
@@ -362,5 +433,9 @@ def load_basecaller(
         raise unported("Keras .h5 import", "utilities")
     else:
         params = params_from_flax(load_params_npz(checkpoint))
-    return Basecaller(params, config, None, options, compute_dtype,
+    options = options or BasecallOptions()
+    lm = None
+    if rna_model is not None and str(rna_model) != "None":
+        lm = load_kmer_json(rna_model, options.context_len)
+    return Basecaller(params, config, lm, options, compute_dtype,
                       mesh=mesh, device=device)

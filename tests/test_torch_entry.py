@@ -22,9 +22,11 @@ def test_entry_points_default_to_the_card_and_refuse_unported():
             main(["in_dir", "out_dir"])
     params = build_model().state_dict()
     for opts in (dict(decode_type="chunk"), dict(assembly_mode="mean"),
-                 dict(prep_mode="strips"), dict(beam_width=17)):
+                 dict(prep_mode="strips"), dict(beam_width=17),
+                 dict(chunk_lm=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpipe.Basecaller(params, options=tpipe.BasecallOptions(**opts),
                              device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.load_basecaller(rna_model="lm.json", device="cpu")
+        tpipe.load_basecaller(device="cpu").basecall_directory(
+            "in_dir", "out_dir", streaming=True)

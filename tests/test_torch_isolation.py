@@ -21,6 +21,7 @@ def test_import_leaves_jax_out():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'radian_tpu'))\n"
         "assert not bad, bad\n"
+        "assert 'radian_tpu_torch.lm.kmer' in sys.modules\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -39,6 +40,7 @@ def test_no_forbidden_imports():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|radian_tpu)\b",
                      re.M)
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert PKG / "lm" / "kmer.py" in files
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
     pat = re.compile(r"^(import|from)\s+(torch|radian_tpu_torch)\b", re.M)
