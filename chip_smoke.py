@@ -16,7 +16,8 @@ parameters), and checks them:
               and one case with exact-zero probabilities; labels and
               n_labels identical, scores within 1e-5 absolute
   3b. lm      the LM-fused decode kernel vs its plain version the same
-              way (lengths down to 1 and 0): beams 1/6/16, ctx 1/3/11/12, dense and packed tables in
+              way (lengths down to 1 and 0): beams 1/6/15/16, ctx
+              0/1/3/11/12, dense and packed tables in
               float32 and bfloat16, gate thresholds (0.5, 0.5) and
               (0.0, 10.0), one exact-zero case; and the count of reads
               whose LM string differs from the no-LM one (must be > 0)
@@ -42,7 +43,10 @@ parameters), and checks them:
               the decode kernel also timed at beam 16 on that batch
   6b. lm-kernels  the LM decode kernel vs its plain version on the first
               LM batch, and timed there with dense float32, dense bfloat16
-              and packed float32/bfloat16 tables of the same LM
+              and packed float32/bfloat16 tables of the same LM, beside the
+              no-LM decode kernel on the same batch; then the same on
+              seeded Dirichlet(0.2) matrices of that shape (the row-heavy
+              regime); LM/no-LM and dense/packed ratios of each run
 
 Prints the nvidia-smi line, one JSON line of kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script
@@ -76,7 +80,10 @@ LM_CASES = ((6, 11, False, False, (0.5, 0.5), False),
             (1, 1, False, False, (0.0, 10.0), False),
             (6, 3, True, True, (0.5, 0.5), False),
             (16, 3, False, True, (0.0, 10.0), False),
-            (6, 12, True, True, (0.0, 10.0), True))
+            (6, 12, True, True, (0.0, 10.0), True),
+            (6, 0, False, True, (0.0, 10.0), False),
+            (15, 0, True, False, (0.0, 10.0), False),
+            (15, 11, False, False, (0.5, 0.5), False))
 # bytes of one LM row lookup, by (packed, bf16): dense probs + entropy;
 # packed l1 (word, rank) + vals row
 ROW_BYTES = {(False, False): 20, (False, True): 10, (True, False): 28,
@@ -413,11 +420,31 @@ def lm_kernels(dev, run, w: int) -> dict:
               ("dense", "bf16"): run["fusions"]["bf16"],
               ("packed", "f32"): lm_fusion(run["lm"], True, False, dev),
               ("packed", "bf16"): lm_fusion(run["lm"], True, True, dev)}
-    active = (torch.arange(t_b, device=dev)[None, :]
+    out = {"plain_ms": plain_ms, "max_abs_err": err, "plain_steps": k}
+    out.update(time_layouts("model", mats, t_reads, w, tables))
+    # the row-heavy regime: seeded Dirichlet(0.2) matrices, every read
+    # full length, where more gates open and more beams extend
+    dm = np.random.default_rng(7).dirichlet(np.full(5, 0.2), (n_b, t_b))
+    time_layouts("dirichlet", torch.from_numpy(dm.astype(np.float32)).to(dev),
+                 torch.full((n_b,), t_b, dtype=torch.int32, device=dev), w,
+                 tables)
+    return out
+
+
+def time_layouts(label, mats, t_reads, w, tables) -> dict:
+    """Time the LM decode kernel with each table layout on ``[N, T, 5]``
+    probabilities, beside its bound, and the no-LM decode kernel on their
+    logs in the same run; print the LM/no-LM and dense/packed ratios.
+    Fails unless dense and packed tables of one dtype decode alike."""
+    import torch
+
+    from radian_tpu_torch.ops import beam_cuda
+
+    n_b, t_b, _ = mats.shape
+    active = (torch.arange(t_b, device=mats.device)[None, :]
               < t_reads.long()[:, None])[..., None]  # [N, T, 1]
     steps = int(active.sum())
-    out = {"plain_ms": plain_ms, "max_abs_err": err, "plain_steps": k}
-    bps = {}
+    out, bps = {}, {}
     for (layout, dt), f in tables.items():
         bps[layout, dt] = bp = beam_cuda.beam_decode_lm_cuda(
             mats, t_reads, w, f)[0]
@@ -429,14 +456,21 @@ def lm_kernels(dev, run, w: int) -> dict:
             + ROW_BYTES[layout == "packed", dt == "bf16"] * n_ext,
             (decode_ops_per_step(w) + lm_ops_per_step(w)) * steps)
         out[layout, dt] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
-        _line("lm-kernels", table=f"{layout}-{dt}",
+        _line("lm-kernels", input=label, table=f"{layout}-{dt}",
               table_bytes=table_bytes(f), active_steps=steps,
               row_lookups=n_ext, decode_ms=f"{ms:.3f}",
               decode_us_per_step=f"{ms * 1e3 / t_b:.3f}",
               bound_ms=f"{b_ms:.4f}", bound_by=b_by)
     for dt in ("f32", "bf16"):
         if not torch.equal(bps["dense", dt], bps["packed", dt]):
-            _fail(f"dense and packed {dt} tables decode differently")
+            _fail(f"dense and packed {dt} tables decode differently "
+                  f"({label})")
+    logm = beam_cuda.log_probs(mats)
+    nolm_ms = cuda_ms(lambda: beam_cuda.beam_decode_cuda(logm, t_reads, w), 3)
+    _line("lm-kernels", input=label, nolm_decode_ms=f"{nolm_ms:.3f}",
+          lm_over_nolm_dense_f32=f"{out['dense', 'f32']['ms'] / nolm_ms:.3f}",
+          dense_over_packed_f32=(
+              f"{out['dense', 'f32']['ms'] / out['packed', 'f32']['ms']:.3f}"))
     return out
 
 
