@@ -449,16 +449,20 @@ def time_layouts(label, mats, t_reads, w, tables) -> dict:
         bps[layout, dt] = bp = beam_cuda.beam_decode_lm_cuda(
             mats, t_reads, w, f)[0]
         n_ext = int((((bp.int() & 7) != 0) & active).sum())
+        row_b = ROW_BYTES[layout == "packed", dt == "bf16"]
         ms = cuda_ms(
             lambda: beam_cuda.beam_decode_lm_cuda(mats, t_reads, w, f), 3)
         b_ms, b_by = bound(
-            20 * steps + w * t_b * n_b + 8 * n_b
-            + ROW_BYTES[layout == "packed", dt == "bf16"] * n_ext,
+            20 * steps + w * t_b * n_b + 8 * n_b + row_b * n_ext,
             (decode_ops_per_step(w) + lm_ops_per_step(w)) * steps)
         out[layout, dt] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+        # table bytes: the bound's (one row per extension) and what the
+        # kernel requests (all 4W child rows of every live step, before
+        # any cache)
         _line("lm-kernels", input=label, table=f"{layout}-{dt}",
               table_bytes=table_bytes(f), active_steps=steps,
-              row_lookups=n_ext, decode_ms=f"{ms:.3f}",
+              row_lookups=n_ext, bound_row_bytes=row_b * n_ext,
+              fetched_row_bytes=row_b * 4 * w * steps, decode_ms=f"{ms:.3f}",
               decode_us_per_step=f"{ms * 1e3 / t_b:.3f}",
               bound_ms=f"{b_ms:.4f}", bound_by=b_by)
     for dt in ("f32", "bf16"):

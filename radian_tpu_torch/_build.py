@@ -4,9 +4,7 @@ Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (the hash
 is of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
 edited source never loads a stale library), compiled for Hopper
 (``sm_90a``) with a plain C interface.  The build runs at first use,
-never at import; a failed build raises.  ``defines`` builds a variant
-beside it (``-DNAME``, e.g. the step probes of ``tools/step_probe.py``),
-hashed apart from the shipped library.
+never at import; a failed build raises.
 """
 
 from __future__ import annotations
@@ -44,11 +42,7 @@ _SIGNATURES = {
     },
 }
 
-# exported only by a build with -DRADIAN_STEP_PROBE
-_PROBE_SIGNATURES = {"radian_probe_read": ([_P], _I),
-                     "radian_probe_reset": ([], _I)}
-
-_LIBS: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -62,19 +56,15 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def _flags(defines: tuple[str, ...]) -> list[str]:
-    return NVCC_FLAGS + [f"-D{d}" for d in defines]
-
-
-def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
+def _target(name: str) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(_flags(defines)).encode())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all(defines: tuple[str, ...] = ()) -> dict[str, dict]:
+def build_all() -> dict[str, dict]:
     """Compile every ``csrc/*.cu`` not yet built, one ``nvcc`` per source,
     all started together.  Returns ``{name: {"seconds", "ptxas"}}``."""
     BUILD_DIR.mkdir(exist_ok=True)
@@ -82,12 +72,12 @@ def build_all(defines: tuple[str, ...] = ()) -> dict[str, dict]:
     procs = {}
     for src in sorted(CSRC.glob("*.cu")):
         name = src.stem
-        out = _target(name, defines)
+        out = _target(name)
         if out.exists():
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -102,22 +92,19 @@ def build_all(defines: tuple[str, ...] = ()) -> dict[str, dict]:
     return report
 
 
-def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _LIBS.get((name, defines))
+    lib = _LIBS.get(name)
     if lib is None:
-        out = _target(name, defines)
+        out = _target(name)
         if not out.exists():
-            build_all(defines)
+            build_all()
         lib = ctypes.CDLL(str(out))
-        sigs = dict(_SIGNATURES[name])
-        if "RADIAN_STEP_PROBE" in defines:
-            sigs.update(_PROBE_SIGNATURES)
-        for fn, (argtypes, restype) in sigs.items():
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = restype
-        _LIBS[name, defines] = lib
+        _LIBS[name] = lib
     return lib
 
 

@@ -71,7 +71,6 @@ beam_decode_kernel(const float* __restrict__ logm, const int* __restrict__ lengt
   if (n >= N) return;  // warp-uniform
   WarpScratch& s = scratch[threadIdx.x >> 5];
   Beam bm = initial_beam(lane);
-  RADIAN_PROBE_BEGIN();
 
   int steps = lengths[n];
   steps = steps < 0 ? 0 : (steps > T ? T : steps);
@@ -103,20 +102,15 @@ beam_decode_kernel(const float* __restrict__ logm, const int* __restrict__ lengt
       __syncwarp();
       if (t0 + kTile < steps) load_tile(t0 + kTile);
     }
-    RADIAN_PROBE(kProbeTile);
     for (int tt = 0; tt < ns; ++tt) {
-      RADIAN_PROBE_STEP();
       const float4 lq = *reinterpret_cast<const float4*>(&s.lp[tt][0]);
       const float lpc[4] = {lq.x, lq.y, lq.z, lq.w};
       search_step<W>(s, lane, bm, lpc, lpc, s.lp[tt][4], [] {});
       if (lane < W) gather_beam<W>(s, lane, tt, bm);
-      RADIAN_PROBE_SYNC(kProbeGather);
     }
     __syncwarp();
     flush_bp<W>(s, lane, bp_read, t0, nt, ns);
-    RADIAN_PROBE(kProbeTile);
   }
-  RADIAN_PROBE_END();
   if (lane == 0) {
     score[n] = bm.pt;
     nlab[n] = bm.len;

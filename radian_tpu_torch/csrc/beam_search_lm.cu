@@ -25,7 +25,7 @@
 // L2), plus the logs of the fused distributions.  A first version loaded
 // the row after the step's ranking and had each lane take 8 logs at the
 // top of the next step: a memory round trip and ~400 cycles on every
-// step's chain (clock64() probes, radian_tpu_torch/tools/step_probe.py).
+// step's chain (measured with clock64() probes in a scratch build).
 // The design:
 //   - the tile of 32 steps' probabilities is turned, lane i for step i,
 //     into the five log-probs, s_sum, s_base and the signal entropy, once
@@ -213,7 +213,6 @@ beam_decode_lm_kernel(const float* __restrict__ probs, const int* __restrict__ l
   const uint32_t ctx_mask = (1u << (2 * ctx_len)) - 1u;
   typename Table::Stage st[kFetches<W>];
   int cb = 0;  // this step's child buffer
-  RADIAN_PROBE_BEGIN();
 
   int steps = lengths[n];
   steps = steps < 0 ? 0 : (steps > T ? T : steps);
@@ -265,9 +264,7 @@ beam_decode_lm_kernel(const float* __restrict__ probs, const int* __restrict__ l
       }
       __syncwarp();
     }
-    RADIAN_PROBE(kProbeTile);
     for (int tt = 0; tt < ns; ++tt) {
-      RADIAN_PROBE_STEP();
       // fetch the children of each beam's context into this step's buffer
 #pragma unroll
       for (int q = 0; q < kFetches<W>; ++q) {
@@ -277,7 +274,6 @@ beam_decode_lm_kernel(const float* __restrict__ probs, const int* __restrict__ l
           table.issue((ctx * 4u + static_cast<uint32_t>(k & 3)) & ctx_mask, lm.child[cb][k],
                       st[q]);
       }
-      RADIAN_PROBE(kProbeIssue);
       // the scores: log m[c], or where a gate opens the log of the fused
       // distribution; COPY needs only its last base's.  The 5W logs are
       // spread over the lanes, (beam f/5, column f%5) for f = lane + 32q,
@@ -333,7 +329,6 @@ beam_decode_lm_kernel(const float* __restrict__ probs, const int* __restrict__ l
         }
       }
       const float lpc[4] = {lpc0, lpc0, lpc0, lpc0};  // search_step reads lpc[last]
-      RADIAN_PROBE_SYNC(kProbeFusion);
       search_step<W>(
           s, lane, bm, lpc, lpe, s.lp[tt][4],
           [&] {
@@ -367,13 +362,10 @@ beam_decode_lm_kernel(const float* __restrict__ probs, const int* __restrict__ l
         }
       }
       cb ^= 1;
-      RADIAN_PROBE_SYNC(kProbeGather);
     }
     __syncwarp();
     flush_bp<W>(s, lane, bp_read, t0, nt, ns);
-    RADIAN_PROBE(kProbeTile);
   }
-  RADIAN_PROBE_END();
   if (lane == 0) {
     score[n] = bm.pt;
     nlab[n] = bm.len;

@@ -63,73 +63,6 @@ struct __align__(16) WarpScratch {
   int8_t bp[kTile * kMaxBeam];  // backpointers of the current tile
 };
 
-// clock64() probes of a step's phases, compiled in only with
-// -DRADIAN_STEP_PROBE (radian_tpu_torch/tools/step_probe.py builds such a
-// library beside the shipped one); otherwise every RADIAN_PROBE* is empty.
-// Lane 0 adds the cycles since the previous mark to phase k of its warp;
-// a warp adds its sums to g_probe when it ends.  _SYNC marks first
-// __syncwarp() so the phase ends when the slowest lane is done.  Phases:
-enum Probe {
-  kProbeTile,    // tile preparation and backpointer flush
-  kProbeIssue,   // the LM's fetch of the children's rows, issued
-  kProbeFusion,  // the LM's fused scores
-  kProbeCands,   // own candidates, up to the step's first __syncwarp
-  kProbeMerge,   // merge detection
-  kProbeKeys,    // merged candidates, keys, records
-  kProbeRank,    // ranking
-  kProbeLand,    // land(): the fetched rows stored and visible
-  kProbeGather,  // the new beams (and the LM's rows) gathered
-  kProbeSteps = 15,  // count of steps, not cycles
-  kProbes
-};
-#ifdef RADIAN_STEP_PROBE
-__device__ unsigned long long g_probe[kProbes];
-struct ProbeState {
-  long long last;
-  long long acc[kProbes];
-};
-__device__ __forceinline__ ProbeState& probe_state() {
-  __shared__ ProbeState st[kWarps];
-  return st[threadIdx.x >> 5];
-}
-__device__ __forceinline__ void probe_mark(int k) {
-  if ((threadIdx.x & 31) == 0) {
-    ProbeState& p = probe_state();
-    const long long now = clock64();
-    p.acc[k] += now - p.last;
-    p.last = now;
-  }
-}
-__device__ __forceinline__ void probe_begin() {
-  if ((threadIdx.x & 31) == 0) {
-    ProbeState& p = probe_state();
-    for (int k = 0; k < kProbes; ++k) p.acc[k] = 0;
-    p.last = clock64();
-  }
-}
-__device__ __forceinline__ void probe_step() {
-  if ((threadIdx.x & 31) == 0) ++probe_state().acc[kProbeSteps];
-}
-__device__ __forceinline__ void probe_end() {
-  if ((threadIdx.x & 31) == 0) {
-    const ProbeState& p = probe_state();
-    for (int k = 0; k < kProbes; ++k)
-      atomicAdd(&g_probe[k], static_cast<unsigned long long>(p.acc[k]));
-  }
-}
-#define RADIAN_PROBE(k) ::radian::probe_mark(k)
-#define RADIAN_PROBE_SYNC(k) (__syncwarp(), ::radian::probe_mark(k))
-#define RADIAN_PROBE_BEGIN() ::radian::probe_begin()
-#define RADIAN_PROBE_END() ::radian::probe_end()
-#define RADIAN_PROBE_STEP() ::radian::probe_step()
-#else
-#define RADIAN_PROBE(k) ((void)0)
-#define RADIAN_PROBE_SYNC(k) ((void)0)
-#define RADIAN_PROBE_BEGIN() ((void)0)
-#define RADIAN_PROBE_END() ((void)0)
-#define RADIAN_PROBE_STEP() ((void)0)
-#endif
-
 // A lane's beam; lanes >= W hold an invalid one.
 struct Beam {
   float pb, pnb, pt;
@@ -186,7 +119,6 @@ __device__ __forceinline__ void search_step(WarpScratch& s, int lane, const Beam
     s.ext_nb[lane] = make_float4(enb[0], enb[1], enb[2], enb[3]);
   }
   __syncwarp();
-  RADIAN_PROBE(kProbeCands);
 
   // merge pairs, both ways: bit b of `fwd` = some EXTEND(lane, c) has
   // COPY(b)'s labeling; bit b of `bwd` = some EXTEND(b, c) has ours
@@ -230,7 +162,6 @@ __device__ __forceinline__ void search_step(WarpScratch& s, int lane, const Beam
                    (wins[3] ? 8 : 0);
   }
   __syncwarp();
-  RADIAN_PROBE(kProbeMerge);
   hooks.mid();
 
   // copy side: COPY(lane) against the EXTEND(b, c) that match it
@@ -279,7 +210,6 @@ __device__ __forceinline__ void search_step(WarpScratch& s, int lane, const Beam
     publish();
   }
   __syncwarp();
-  RADIAN_PROBE(kProbeKeys);
 
   // top-W by rank: lane ranks slots lane + 32q against all 5W keys
   // (64-bit key: ordered score, then 0xffff - slot so ties go to the
@@ -312,10 +242,8 @@ __device__ __forceinline__ void search_step(WarpScratch& s, int lane, const Beam
     const int slot = lane + 32 * q;
     if (slot < kSlots && rank[q] < W) s.pick[rank[q]] = slot;
   }
-  RADIAN_PROBE_SYNC(kProbeRank);
   hooks.land();
   __syncwarp();
-  RADIAN_PROBE(kProbeLand);
 }
 
 // Owner lane k takes the slot of rank k: its new beam and the step's
@@ -354,14 +282,3 @@ __device__ __forceinline__ void flush_bp(const WarpScratch& s, int lane, int8_t*
 }
 
 }  // namespace radian
-
-#ifdef RADIAN_STEP_PROBE
-// The probe sums (cycles per phase, summed over warps) and their reset.
-extern "C" int radian_probe_read(void* out) {
-  return cudaMemcpyFromSymbol(out, radian::g_probe, sizeof(radian::g_probe));
-}
-extern "C" int radian_probe_reset() {
-  static const unsigned long long zero[radian::kProbes] = {};
-  return cudaMemcpyToSymbol(radian::g_probe, zero, sizeof(zero));
-}
-#endif

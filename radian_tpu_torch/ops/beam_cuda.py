@@ -136,6 +136,13 @@ def _table_kind(lm: plain.LMFusion, device: torch.device) -> int:
             f"LM tables must be {want}, float32 or bfloat16, R >= 4^ctx_len "
             f"= {n_ctx}; got {tuple(t1.shape)} {t1.dtype}, "
             f"{tuple(t2.shape)} {t2.dtype}")
+    # the kernel copies a dense row's 4 probabilities with one cp.async and
+    # reads a packed l1 entry as one int2: each needs its start aligned to
+    # its size, which a view's storage offset may break
+    align = 8 if lm.packed else 4 * t1.element_size()
+    if t1.data_ptr() % align:
+        raise ValueError(f"LM table {'l1' if lm.packed else 'probs'} must "
+                         f"start {align}-byte aligned (a view's offset)")
     return kind
 
 

@@ -89,3 +89,15 @@ def test_lm_wrapper_raises_instead_of_falling_back():
     for lm in bad:
         with pytest.raises(ValueError):
             beam_cuda._table_kind(lm, cpu)
+    # contiguous views whose start breaks the kernel's vector loads: dense
+    # probs one value in (cp.async of a row), packed l1 one int32 in (int2)
+    for packed, dtype in ((False, torch.float32), (False, torch.bfloat16),
+                          (True, torch.float32)):
+        lm = _lm(packed, dtype)[1]
+        buf = torch.cat([lm.t1.flatten()[:1], lm.t1.flatten()])
+        shifted = lm._replace(t1=buf[1:].view(lm.t1.shape))
+        assert shifted.t1.is_contiguous() and torch.equal(shifted.t1, lm.t1)
+        with pytest.raises(ValueError, match="aligned"):
+            beam_cuda._table_kind(shifted, cpu)
+        whole = buf.new_empty(buf.numel() + 7)[8:].view(lm.t1.shape)
+        assert beam_cuda._table_kind(lm._replace(t1=whole), cpu) is not None
