@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (radian_tpu_torch).
 
-Drives the port's two main paths, the default global-mode no-LM
-basecall and global mode with the bench's 12-mer LM fused in (float32
-and bfloat16 forwards), on one CUDA device at the full width of the
-repo's trained model (bench_data/trained/params.npz, 2,200,581
-parameters), and checks them:
+Drives the port's main paths on one CUDA device at the full width of
+the repo's trained model (bench_data/trained/params.npz, 2,200,581
+parameters): the default global-mode no-LM basecall, global mode with
+the bench's 12-mer LM fused in (float32 and bfloat16 forwards), chunk
+mode (the reference's --decode-type chunk) and chunk_lm (the tiled,
+LM-fused chunk decode), and checks them:
 
   1. device   nvidia-smi name and power limit, torch's device name
-  2. build    nvcc builds every csrc/*.cu kernel from this checkout (one
-              nvcc a source, in parallel); ptxas registers, stack frame and
-              spills per kernel instantiation
+  2. build    nvcc builds every csrc/*.cu kernel and g++ the csrc/*.cc
+              stitcher from this checkout (one compiler a source, in
+              parallel); ptxas registers, stack frame and spills per
+              kernel instantiation
   3. kernel   no-LM beam-search kernels vs their plain PyTorch version,
               both on the card: N=64, T up to 1,500, beams 1/2/6/8/12/16
               and one case with exact-zero probabilities; labels and
@@ -47,10 +49,33 @@ parameters), and checks them:
               no-LM decode kernel on the same batch; then the same on
               seeded Dirichlet(0.2) matrices of that shape (the row-heavy
               regime); LM/no-LM and dense/packed ratios of each run
+  7. chunk    Basecaller(decode_type='chunk') with the defaults ('fused',
+              reference consensus, beam 6, read_batch 256) on phase 5's
+              512 reads in float32: warm-up, then a timed run with the
+              launch counts set to 0 (the decode and backtrace kernels
+              must launch, the LM kernel must not); reads/s, Msamples/s,
+              peak memory; per batch the full-read forward, head forward,
+              decode and host stitch ms; card strings == CPU strings on
+              phase 4's reads for 'fused', 'windows' and 'fullprobs' (the
+              tiled crop), and 'fused' == 'windows' (a mismatch prints
+              each differing window and its max |dp|)
+  7b. chunk-lm  'fullprobs' + tiled crop + chunk_lm with the bench's LM:
+              float32 card == CPU strings on phase 4's reads; the
+              bfloat16 forward and tables timed and split on the 512
+              reads (the LM and backtrace kernels must launch, the no-LM
+              decode must not), its strings vs the CPU's bfloat16 run
+              reported; warm single-read latency (read_batch 1, median of
+              5) beside global+LM's
+  7c. chunk-kernels  the no-LM decode and backtrace kernels vs their
+              plain versions on all of phase 7's first batch of windows
+              (length-0 windows included; bit-exact backpointers, labels
+              and counts, scores within 1e-5), the LM decode kernel the
+              same on phase 7b's first batch; each timed there beside its
+              bound, in the kernels line under "chunk"
 
 Prints the nvidia-smi line, one JSON line of kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script
-exits non-zero before that line.  Needs one CUDA device and nvcc:
+exits non-zero before that line.  Needs one CUDA device, nvcc and g++:
 
     python3 chip_smoke.py
 """
@@ -478,6 +503,325 @@ def time_layouts(label, mats, t_reads, w, tables) -> dict:
     return out
 
 
+def zero_launches() -> None:
+    from radian_tpu_torch.ops import beam_cuda
+
+    for k in (beam_cuda.beam_decode_cuda, beam_cuda.beam_decode_lm_cuda,
+              beam_cuda.beam_backtrace_cuda):
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    from radian_tpu_torch.ops import beam_cuda
+
+    return {"beam_decode": beam_cuda.beam_decode_cuda.launches,
+            "beam_decode_lm": beam_cuda.beam_decode_lm_cuda.launches,
+            "beam_backtrace": beam_cuda.beam_backtrace_cuda.launches}
+
+
+def timed_run(dev, bc, reads, phase: str, **kv) -> tuple[list, dict]:
+    """A warm-up run, then a timed run of ``bc.basecall_signals`` with
+    every launch count set to 0 just before it; prints reads/s,
+    Msamples/s and peak memory; returns the strings and the counts."""
+    import torch
+
+    bc.basecall_signals(reads)  # warm-up: cuDNN plans, allocator, library
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    seqs = bc.basecall_signals(reads)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_samples = sum(len(r) for r in reads)
+    _line(phase, **kv, reads=len(reads), batches=len(bc.batches(reads)),
+          reads_per_s=f"{len(reads) / wall:.2f}",
+          msamples_per_s=f"{n_samples / wall / 1e6:.3f}",
+          wall_s=f"{wall:.3f}",
+          peak_mem_gb=f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f}",
+          launches=json.dumps(launches, separators=(",", ":")))
+    if any(not s for s in seqs):
+        _fail(f"a read came back empty or skipped ({phase})")
+    return seqs, launches
+
+
+def chunk_split(bc, reads, phase: str, heads: str) -> tuple:
+    """Per-batch split of a fused chunk path, synchronised after each
+    step: the full-read forward, the windows' probabilities (``heads``:
+    the head fix-up forward and the gather, or the gather alone), the
+    decode (log, kernel, backtrace, crop, compaction) and the host stitch
+    (label copy included).  Returns the first batch's ``(probs, lens)``."""
+    import torch
+
+    first, split = None, []
+    for idxs, bucket in bc.batches(reads):
+        sig_t, len_t = bc.pad_batch(idxs, bucket, reads)
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        geom = bc.chunk_geometry(len_t, bucket)
+        norm, probs_full, mads = bc.chunk_forward(sig_t, len_t)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        probs = bc.chunk_window_probs(norm, probs_full, geom)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        packed, n_lab = bc.chunk_decode(probs, geom)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        bc._collect_batch(("chunk", idxs, mads, packed, geom.n_dec, n_lab),
+                          {})
+        t.append(time.perf_counter())
+        ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+        split.append(ms)
+        _line(f"{phase}-batch", bucket=bucket, reads=len(idxs),
+              windows=probs.shape[0], active_steps=int(geom.lens.sum()),
+              fullread_forward_ms=f"{ms[0]:.2f}", **{heads: f"{ms[1]:.2f}"},
+              decode_ms=f"{ms[2]:.2f}", stitch_ms=f"{ms[3]:.2f}")
+        if first is None:
+            first = (probs, geom.lens.reshape(-1).to(torch.int32))
+        del probs, norm, probs_full
+    mean = np.mean(split, axis=0)
+    _line(phase, fullread_forward_ms_per_batch=f"{mean[0]:.2f}",
+          **{f"{heads}_per_batch": f"{mean[1]:.2f}"},
+          decode_ms_per_batch=f"{mean[2]:.2f}",
+          stitch_ms_per_batch=f"{mean[3]:.2f}")
+    return first
+
+
+def chunk_window_diff(dev, phase: str, make, sigs) -> None:
+    """For a card-vs-CPU string mismatch on a fused chunk path: print the
+    windows whose labels differ between the two devices and the max
+    |dp| of their probabilities (``make(device)`` builds the
+    Basecaller; all reads go into one batch of the largest bucket,
+    which changes no window's values)."""
+    import torch
+
+    out = {}
+    for d, on_cpu in (("cpu", True), (dev, False)):
+        bc = make(d)
+        bucket = bc._bucket(max(len(s) for s in sigs))
+        sig_t, len_t = bc.pad_batch(list(range(len(sigs))), bucket, sigs)
+        geom = bc.chunk_geometry(len_t, bucket)
+        probs = bc.chunk_window_probs(*bc.chunk_forward(sig_t, len_t)[:2],
+                                      geom)
+        packed, n_lab = bc.chunk_decode(probs, geom)
+        out[on_cpu] = (probs.cpu(), packed.cpu(), n_lab.cpu(),
+                       geom.n_dec.cpu())
+    (p_c, k_c, n_c, d_c), (p_g, k_g, n_g, _) = out[True], out[False]
+    n_rows = n_c.shape[1]
+    for j in range(len(sigs)):
+        for w in range(int(d_c[j])):
+            if n_c[j, w] != n_g[j, w] or not torch.equal(k_c[j, w], k_g[j, w]):
+                r = j * n_rows + w
+                _line(f"{phase}-diff", read=j, window=w,
+                      labels_cpu=int(n_c[j, w]), labels_card=int(n_g[j, w]),
+                      max_abs_dp=float((p_c[r] - p_g[r]).abs().max()))
+
+
+def e2e_chunk(dev, reads, small) -> dict:
+    """Phase 7: chunk mode with the defaults (fused, reference consensus)
+    on the card, timed and split; card strings vs the port's CPU strings
+    for 'fused', 'windows' and 'fullprobs' with the tiled crop."""
+    from radian_tpu_torch.pipeline import BasecallOptions, load_basecaller
+
+    opts = BasecallOptions(decode_type="chunk", beam_width=6, read_batch=256,
+                           bucket_quantum=4096)
+    bc = load_basecaller(TRAINED, options=opts, device=dev)
+    if not bc.use_chunk_fused or bc.chunk_head != 256 or bc.chunk_tiled:
+        _fail("the default chunk options did not pick the fused path")
+    _, launches = timed_run(dev, bc, reads, "chunk", path="fused",
+                            forward="f32")
+    if (not launches["beam_decode"] or not launches["beam_backtrace"]
+            or launches["beam_decode_lm"]):
+        _fail(f"the chunk path did not run through its kernels: {launches}")
+    first = chunk_split(bc, reads, "chunk", "head_forward_ms")
+    got = {}
+    for prep in ("fused", "windows", "fullprobs"):
+        small_opts = BasecallOptions(decode_type="chunk", chunk_prep=prep,
+                                     beam_width=6, read_batch=4,
+                                     bucket_quantum=4096)
+
+        def make(d, o=small_opts):
+            return load_basecaller(TRAINED, options=o, device=d)
+
+        want = make("cpu").basecall_signals(small)
+        got[prep] = make(dev).basecall_signals(small)
+        same = sum(a == b for a, b in zip(got[prep], want))
+        _line("chunk-check", path=prep, reads=len(small),
+              identical_to_cpu=same, lengths=[len(s) for s in got[prep]])
+        if same != len(small):
+            if prep != "windows":
+                chunk_window_diff(dev, "chunk-check", make, small)
+            _fail(f"chunk card strings differ from the port's CPU run "
+                  f"({prep})")
+    if got["fused"] != got["windows"]:
+        _fail("chunk 'fused' and 'windows' strings differ on the card")
+    return {"launches": launches, "first": first}
+
+
+def e2e_chunk_lm(dev, flat, reads, small, lm) -> dict:
+    """Phase 7b: 'fullprobs' + tiled crop + chunk_lm with the bench's LM:
+    float32 card vs CPU strings on phase 4's reads; the bfloat16 forward
+    and tables timed and split on the 512 reads, its strings vs the
+    CPU's bfloat16 run (reported); warm single-read latency beside
+    global+LM's."""
+    import torch
+
+    from radian_tpu_torch.models.checkpoint import params_from_flax
+    from radian_tpu_torch.pipeline import Basecaller, BasecallOptions
+
+    params = params_from_flax(flat)
+    kw = dict(decode_type="chunk", chunk_prep="fullprobs", chunk_lm=True,
+              beam_width=6, bucket_quantum=4096)
+
+    def make(d, dtype=torch.float32, read_batch=4):
+        return Basecaller(params, lm=lm, options=BasecallOptions(
+            read_batch=read_batch, **kw), compute_dtype=dtype, device=d)
+
+    want = make("cpu").basecall_signals(small)
+    got = make(dev).basecall_signals(small)
+    same = sum(a == b for a, b in zip(got, want))
+    _line("chunk-lm-check", forward="f32", reads=len(small),
+          identical_to_cpu=same, lengths=[len(s) for s in got])
+    if same != len(small):
+        chunk_window_diff(dev, "chunk-lm-check", make, small)
+        _fail("chunk_lm card strings differ from the port's CPU run (f32)")
+    bc = make(dev, torch.bfloat16, 256)
+    if not (bc.chunk_tiled and bc.chunk_lm) or bc.crop_off != 640:
+        _fail("chunk_lm did not pick the tiled crop")
+    _, launches = timed_run(dev, bc, reads, "chunk-lm", forward="bf16",
+                            lm_table_dtype=str(bc.lm_fusion.t2.dtype)
+                            .replace("torch.", ""),
+                            crop_off=bc.crop_off, crop_stride=bc.crop_stride)
+    if (not launches["beam_decode_lm"] or not launches["beam_backtrace"]
+            or launches["beam_decode"]):
+        _fail(f"chunk_lm did not run through its kernels: {launches}")
+    first = chunk_split(bc, reads, "chunk-lm", "window_gather_ms")
+    want = make("cpu", torch.bfloat16).basecall_signals(small)
+    got = make(dev, torch.bfloat16).basecall_signals(small)
+    _line("chunk-lm-check", forward="bf16", reads=len(small),
+          identical_to_cpu=sum(a == b for a, b in zip(got, want)),
+          lengths=[len(s) for s in got])
+    # warm single-read latency, the median-length read of the 512
+    read = sorted(reads, key=len)[len(reads) // 2]
+    for name, bc1 in (("chunk_lm", make(dev, torch.bfloat16, 1)),
+                      ("global_lm", Basecaller(
+                          params, lm=lm, options=BasecallOptions(
+                              beam_width=6, read_batch=1,
+                              bucket_quantum=4096),
+                          compute_dtype=torch.bfloat16, device=dev))):
+        ms = []
+        for _ in range(6):  # the first is the warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bc1.basecall_signals([read])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        _line("chunk-lm-latency", path=name, forward="bf16",
+              samples=len(read), median_ms=f"{np.median(ms[1:]):.2f}",
+              runs_ms=[round(x, 2) for x in ms[1:]])
+    return {"launches": launches, "first": first, "fusion": bc.lm_fusion}
+
+
+def chunk_kernels(dev, chunk_run, lm_run, w: int) -> dict:
+    """Phase 7c: each kernel vs its plain version on the first chunk
+    batch's window matrices (all of them, length-0 windows included),
+    then timed there beside its bound; the LM kernel the same on the
+    first chunk_lm batch with that run's tables."""
+    import torch
+
+    from radian_tpu_torch.ops import beam_cuda
+    from radian_tpu_torch.ops import beam_search as plain
+
+    out = {}
+    probs, lens = chunk_run["first"]
+    n_b, t_b, _ = probs.shape
+    if not (lens == 0).any():
+        _fail("the compared chunk batch has no length-0 windows")
+    logm = beam_cuda.log_probs(probs)
+    bp_k, nlab_k, sc_k = beam_cuda.beam_decode_cuda(logm, lens, w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp_p, nlab_p, sc_p = plain.beam_search_bp(logm.permute(1, 2, 0), lens, w)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((sc_k - sc_p).abs().max())
+    if not (torch.equal(bp_k, bp_p.permute(2, 0, 1)) and
+            torch.equal(nlab_k, nlab_p) and err <= 1e-5):
+        _fail("decode kernel disagrees with the plain version on the chunk "
+              "batch")
+    rev_k = beam_cuda.beam_backtrace_cuda(bp_k)
+    t0 = time.perf_counter()
+    rev_p = plain.backtrace_batch(bp_k.permute(1, 2, 0))
+    torch.cuda.synchronize()
+    bt_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(rev_k, rev_p):
+        _fail("backtrace kernel disagrees with the plain version on the "
+              "chunk batch")
+    steps = int(lens.long().sum())
+    ms = cuda_ms(lambda: beam_cuda.beam_decode_cuda(logm, lens, w), 3)
+    b_ms, b_by = bound(20 * steps + w * t_b * n_b + 12 * n_b,
+                       decode_ops_per_step(w) * steps)
+    bt_ms = cuda_ms(lambda: beam_cuda.beam_backtrace_cuda(bp_k), 5)
+    bt_b_ms, bt_b_by = bound(t_b * n_b * (1 + 4), 3 * t_b * n_b)
+    shape = [n_b, t_b, w]
+    out["decode"] = {"launches": chunk_run["launches"]["beam_decode"],
+                     "shape": shape, "active_steps": steps,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    out["backtrace"] = {"launches": chunk_run["launches"]["beam_backtrace"],
+                        "shape": shape, "max_abs_err": 0.0, "ms": bt_ms,
+                        "plain_ms": bt_plain_ms, "bound_ms": bt_b_ms,
+                        "bound_by": bt_b_by}
+    _line("chunk-kernels", windows=n_b, T=t_b, beam=w, active_steps=steps,
+          zero_length_windows=int((lens == 0).sum()), max_abs_score_err=err,
+          decode_ms=f"{ms:.3f}", decode_plain_ms=f"{plain_ms:.1f}",
+          decode_bound_ms=f"{b_ms:.4f}", decode_bound_by=b_by,
+          ns_per_window_step=f"{ms * 1e6 / steps:.3f}",
+          backtrace_ms=f"{bt_ms:.3f}", backtrace_plain_ms=f"{bt_plain_ms:.1f}",
+          backtrace_bound_ms=f"{bt_b_ms:.4f}")
+
+    probs, lens = lm_run["first"]
+    fusion = lm_run["fusion"]
+    n_b, t_b, _ = probs.shape
+    if not (lens == 0).any():
+        _fail("the compared chunk_lm batch has no length-0 windows")
+    bp_k, nlab_k, sc_k = beam_cuda.beam_decode_lm_cuda(probs, lens, w, fusion)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bp_p, nlab_p, sc_p = plain_lm_decode(probs, lens, w, fusion)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((sc_k - sc_p).abs().max())
+    if not (torch.equal(bp_k, bp_p) and torch.equal(nlab_k, nlab_p)
+            and err <= 1e-5):
+        _fail("LM decode kernel disagrees with the plain version on the "
+              "chunk_lm batch")
+    active = (torch.arange(t_b, device=probs.device)[None, :]
+              < lens.long()[:, None])[..., None]
+    steps = int(active.sum())
+    n_ext = int((((bp_k.int() & 7) != 0) & active).sum())
+    row_b = ROW_BYTES[fusion.packed, fusion.t2.dtype == torch.bfloat16]
+    ms = cuda_ms(lambda: beam_cuda.beam_decode_lm_cuda(probs, lens, w,
+                                                       fusion), 3)
+    b_ms, b_by = bound(20 * steps + w * t_b * n_b + 8 * n_b + row_b * n_ext,
+                       (decode_ops_per_step(w) + lm_ops_per_step(w)) * steps)
+    out["decode_lm"] = {"launches": lm_run["launches"]["beam_decode_lm"],
+                        "shape": [n_b, t_b, w], "active_steps": steps,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by}
+    _line("chunk-kernels", kernel="beam_decode_lm", windows=n_b, T=t_b,
+          beam=w, active_steps=steps, row_lookups=n_ext,
+          zero_length_windows=int((lens == 0).sum()),
+          table=f"{'packed' if fusion.packed else 'dense'}-"
+                f"{str(fusion.t2.dtype).replace('torch.', '')}",
+          max_abs_score_err=err, decode_ms=f"{ms:.3f}",
+          decode_plain_ms=f"{plain_ms:.1f}", decode_bound_ms=f"{b_ms:.4f}",
+          decode_bound_by=b_by, ns_per_window_step=f"{ms * 1e6 / steps:.3f}")
+    return out
+
+
 def synth_signals(rng, lengths, levels):
     from radian_tpu_torch.utils.synthetic import synth_read
 
@@ -525,8 +869,9 @@ def main() -> int:
 
     # 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    report = _build.build_all()
-    for name in sorted(p.stem for p in _build.CSRC.glob("*.cu")):
+    report = _build.build()
+    for name in sorted(p.stem for p in (*_build.CSRC.glob("*.cu"),
+                                        *_build.CSRC.glob("*.cc"))):
         _build.load(name)
     _line("build", seconds=f"{time.perf_counter() - t0:.1f}",
           sources=sorted(report) or "cached")
@@ -716,19 +1061,30 @@ def main() -> int:
 
     # 6b. the LM kernel on the LM path's first batch -----------------------
     lmk = lm_kernels(dev, lm_run, w)
+    del first, mats, t_reads, logm, logm_tn, bp_k, bp_p, rev_k, rev_p
+    lm_run.pop("first")
+
+    # 7. chunk mode (fused) -------------------------------------------------
+    chunk_run = e2e_chunk(dev, reads, small)
+
+    # 7b. chunk_lm (fullprobs, tiled crop, the bench LM) -------------------
+    chunk_lm_run = e2e_chunk_lm(dev, flat, reads, small, lm_run["lm"])
+
+    # 7c. the kernels on the chunk paths' first batches --------------------
+    ck = chunk_kernels(dev, chunk_run, chunk_lm_run, w)
     kernels = [
         {"name": "beam_decode", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",
          "replaces": "radian_tpu/ops/beam_pallas.py:369",
          "launches": launches["beam_decode"], "max_abs_err": dec_err,
          "ms": dec_ms, "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
-         "bound_by": dec_by, "library_ms": None},
+         "bound_by": dec_by, "library_ms": None, "chunk": ck["decode"]},
         {"name": "beam_backtrace", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",
          "replaces": "radian_tpu/ops/beam_search.py:420",
          "launches": launches["beam_backtrace"], "max_abs_err": 0.0,
          "ms": bt_ms, "plain_ms": bt_plain_ms, "bound_ms": bt_bound,
-         "bound_by": bt_by, "library_ms": None},
+         "bound_by": bt_by, "library_ms": None, "chunk": ck["backtrace"]},
         {"name": "beam_decode_lm", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search_lm.cu",
          "replaces": "radian_tpu/ops/beam_search.py:176",
@@ -736,7 +1092,8 @@ def main() -> int:
          "max_abs_err": lmk["max_abs_err"],
          "ms": lmk["dense", "f32"]["ms"], "plain_ms": lmk["plain_ms"],
          "bound_ms": lmk["dense", "f32"]["bound_ms"],
-         "bound_by": lmk["dense", "f32"]["bound_by"], "library_ms": None},
+         "bound_by": lmk["dense", "f32"]["bound_by"], "library_ms": None,
+         "chunk": ck["decode_lm"]},
     ]
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(smi)

@@ -1,16 +1,26 @@
 """radian-tpu-torch: the PyTorch/CUDA port of radian_tpu, for an NVIDIA H100.
 
 A second package beside the JAX reference ``radian_tpu``, module for
-module.  Ported so far: global-mode basecalling end to end: fast5
-ingest, MAD normalisation, the causal TCN sig2seq model (float32 or
-bfloat16), global "first" assembly, and CTC prefix beam search, with or
-without the k-mer LM fused in, as hand-written CUDA kernels
-(``csrc/*.cu``, built with ``nvcc`` at first use).  It imports ``torch``
-and never ``jax`` or ``radian_tpu``.
+module.  Ported so far, end to end from fast5 to fasta, in batches or
+streaming: MAD normalisation, the causal TCN sig2seq model (float32 or
+bfloat16), and CTC prefix beam search, with or without the k-mer LM
+fused in, as hand-written CUDA kernels (``csrc/*.cu``, built with
+``nvcc`` at first use), in
+
+- global mode ("first" assembly, one decode over each whole read), and
+- chunk mode (``decode_type='chunk'``): every overlapped window decoded
+  on its own, then stitched on the host by the reference's consensus
+  (``csrc/seqmatch.cc``, built with ``g++``) -- ``chunk_prep`` 'fused'
+  (default), 'windows', or 'fullprobs' with the tiled centre crop
+  (stitched by concatenation) and ``chunk_lm`` (the LM fused into that
+  decode).
+
+It imports ``torch`` and never ``jax`` or ``radian_tpu``.
 
 Subpackages
 -----------
-- ``radian_tpu_torch.ops``     preprocessing, beam search (plain + CUDA)
+- ``radian_tpu_torch.ops``     preprocessing and windowing, beam search
+                               (plain + CUDA), the chunk consensus
 - ``radian_tpu_torch.models``  the sig2seq TCN network + flax weight bridge
 - ``radian_tpu_torch.lm``      the k-mer LM tables (dense and packed)
 - ``radian_tpu_torch.io``      host I/O: fast5, fasta

@@ -1,10 +1,12 @@
-"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+"""Build the package's native sources and load them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (the hash
-is of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
-edited source never loads a stale library), compiled for Hopper
-(``sm_90a``) with a plain C interface.  The build runs at first use,
-never at import; a failed build raises.
+Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, compiled
+by ``nvcc`` for Hopper (``sm_90a``) with a plain C interface; the host
+C++ ``csrc/<name>.cc`` (the chunk-mode stitcher) is compiled the same
+way by ``g++``.  The hash is of the source, the flags and, for CUDA, the
+shared ``csrc/*.cuh`` headers, so an edited source never loads a stale
+library.  The build runs at first use, never at import; a failed build
+or load raises.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -24,10 +27,12 @@ BUILD_DIR = _PKG / "_build"
 # kernels use, so a kernel and its plain version do the same arithmetic
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_long
 # exported C functions: name -> (argtypes, restype)
 _SIGNATURES = {
     "beam_search": {
@@ -40,44 +45,66 @@ _SIGNATURES = {
                                    _I, _I, _I, _P], _I),
         "radian_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "seqmatch": {
+        "LongestBlock": ([_P, _L, _P, _L, _P], None),
+        "AssembleFragments": ([_P, _P, _L, _P], _L),
+        "AssembleRead2": ([_P, _P, _L, _L, _P], _L),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()  # the chunk stitch loads from a thread pool
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _compiler(suffix: str) -> str:
+    name, default = {".cu": ("nvcc", "/usr/local/cuda/bin/nvcc"),
+                     ".cc": ("g++", "/usr/bin/g++")}[suffix]
+    found = shutil.which(name)
     if found:
         return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on a host "
-                       "with the CUDA toolkit")
+    if Path(default).exists():
+        return default
+    raise RuntimeError(f"{name} not found: the {suffix} sources are built "
+                       f"on a host with {name}")
+
+
+def _source(name: str) -> Path:
+    for suffix in (".cu", ".cc"):
+        src = CSRC / f"{name}{suffix}"
+        if src.exists():
+            return src
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cc")
+
+
+def _flags(src: Path) -> list[str]:
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    src = _source(name)
+    digest = hashlib.sha1(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
+    digest.update(" ".join(_flags(src)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all() -> dict[str, dict]:
-    """Compile every ``csrc/*.cu`` not yet built, one ``nvcc`` per source,
-    all started together.  Returns ``{name: {"seconds", "ptxas"}}``."""
+def build(names=None) -> dict[str, dict]:
+    """Compile the named sources (default: every ``csrc/*.cu`` and
+    ``csrc/*.cc``) not yet built, one compiler process per source, all
+    started together.  Returns ``{name: {"seconds", "ptxas"}}``."""
+    if names is None:
+        names = sorted(p.stem for p in (*CSRC.glob("*.cu"),
+                                         *CSRC.glob("*.cc")))
     BUILD_DIR.mkdir(exist_ok=True)
-    nvcc = None
     procs = {}
-    for src in sorted(CSRC.glob("*.cu")):
-        name = src.stem
-        out = _target(name)
+    for name in names:
+        src, out = _source(name), _target(name)
         if out.exists():
             continue
-        nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_compiler(src.suffix), *_flags(src), "-o", str(tmp), str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -85,7 +112,7 @@ def build_all() -> dict[str, dict]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+            raise RuntimeError(f"building csrc/{_source(name).name} failed "
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
@@ -93,19 +120,21 @@ def build_all() -> dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        out = _target(name)
-        if not out.exists():
-            build_all()
-        lib = ctypes.CDLL(str(out))
-        for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = restype
-        _LIBS[name] = lib
-    return lib
+    """The built library for ``csrc/<name>.cu`` or ``.cc``, building it if
+    needed."""
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            out = _target(name)
+            if not out.exists():
+                build([name])
+            lib = ctypes.CDLL(str(out))
+            for fn, (argtypes, restype) in _SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = restype
+            _LIBS[name] = lib
+        return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

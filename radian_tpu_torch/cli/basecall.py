@@ -6,7 +6,9 @@ whose paths this package has not ported yet raise
 
 Usage:
     python -m radian_tpu_torch.cli.basecall FAST5_DIR FASTA_DIR --device cuda \
-        [--rna-model LM.json] [--compute-dtype bfloat16]
+        [--rna-model LM.json] [--compute-dtype bfloat16] \
+        [--decode-type chunk [--chunk-prep fullprobs [--chunk-lm]]] \
+        [--streaming]
 """
 
 from __future__ import annotations
@@ -57,12 +59,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "causal TCN pass over the whole read) are ported")
     p.add_argument("--chunk-prep",
                    choices=["auto", "fused", "fullprobs", "windows"],
-                   default="auto")
-    p.add_argument("--no-chunk-crop", action="store_true")
-    p.add_argument("--chunk-lm", action="store_true")
-    p.add_argument("--chunk-max-lab", default=512, type=int)
+                   default="auto",
+                   help="chunk-mode path: 'fused' (auto) = full-read "
+                        "forward + zero-history window heads; 'windows' = "
+                        "forward over every window; 'fullprobs' = windows "
+                        "cut from the full-read forward (corrected, not "
+                        "the reference's strings)")
+    p.add_argument("--no-chunk-crop", action="store_true",
+                   help="'fullprobs' without the tiled centre crop: "
+                        "stitch overlapping fragments by consensus")
+    p.add_argument("--chunk-lm", action="store_true",
+                   help="fuse the k-mer LM into the tiled chunk decode "
+                        "(needs --rna-model, --chunk-prep fullprobs and "
+                        "the crop)")
+    p.add_argument("--chunk-max-lab", default=512, type=int,
+                   help="per-window emission cap of the fused chunk "
+                        "paths' label compaction (overflow raises)")
     p.add_argument("--consensus", choices=["reference", "device"],
-                   default="reference")
+                   default="reference",
+                   help="chunk-mode stitch: 'reference' (difflib "
+                        "semantics, in C++); 'device' is not ported")
     p.add_argument("--seed", default=0, type=int,
                    help="init seed when no --sig-model is given")
     p.add_argument("--mesh-data", type=int, default=None,
@@ -70,7 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-reads", action="store_true",
                    help="multi-host: each host basecalls its share of reads")
     p.add_argument("--streaming", action="store_true",
-                   help="bounded-memory streaming mode")
+                   help="bounded-memory streaming mode: fasta written in "
+                        "read order as batches finish")
     p.add_argument("--bucket-lengths", default=None,
                    help="comma-separated fixed bucket ladder (e.g. "
                         "'4096,8192,16384')")
@@ -94,8 +111,6 @@ def main(argv=None) -> None:
         unported,
     )
 
-    if args.chunk_lm:
-        raise unported("--chunk-lm", "chunk modes")
     if args.mesh_data is not None:
         raise unported("--mesh-data", "multi-GPU")
     if args.shard_reads:

@@ -389,6 +389,33 @@ def unpack_labels(packed: np.ndarray) -> np.ndarray:
     return out
 
 
+def pack_labels2(comp: torch.Tensor) -> torch.Tensor:
+    """2-bit-pack front-compacted labels along the last axis.
+
+    ``comp`` holds labels in {0..3} up to each row's emission count and
+    -1 after it; the count travels separately, so four labels share a
+    byte.  The last axis must be a multiple of 4.
+    """
+    if comp.shape[-1] % 4 != 0:
+        raise ValueError(f"pack_labels2 needs a multiple-of-4 last axis, "
+                         f"got {tuple(comp.shape)}")
+    v = torch.clamp(comp, min=0).to(torch.uint8)
+    return (v[..., 0::4] | (v[..., 1::4] << 2) | (v[..., 2::4] << 4)
+            | (v[..., 3::4] << 6))
+
+
+def unpack_labels2(packed: np.ndarray, n_lab: np.ndarray) -> np.ndarray:
+    """Host inverse of :func:`pack_labels2` → int8 labels, -1 from each
+    row's count ``n_lab`` (broadcast against ``packed.shape[:-1]``) on."""
+    packed = np.asarray(packed)
+    m = packed.shape[-1]
+    out = np.empty((*packed.shape[:-1], m * 4), np.int8)
+    for k in range(4):
+        out[..., k::4] = ((packed >> (2 * k)) & 3).astype(np.int8)
+    out[np.arange(m * 4) >= np.asarray(n_lab)[..., None]] = -1
+    return out
+
+
 def rows_to_seqs(rev_rows: np.ndarray, reverse: bool = True,
                  bases: str = "ACGT") -> list[str]:
     """Vectorised :func:`labels_to_seq` over a ``[n, T]`` label block."""

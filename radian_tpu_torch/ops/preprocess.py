@@ -6,6 +6,12 @@ radian/preprocess.py:24-49) over a batch of length-padded signals, with
 the JAX device version's float32 operation order: sort with ``+inf``
 padding, median ``0.5*(lo+hi)``, divide, clip, zero past the length.  A
 zero or non-finite MAD marks a read the pipeline skips.
+
+``get_windows_np`` and the batched ``window_signal`` /
+``preprocess_read`` cut a read into overlapped windows as the reference
+does (reference radian/preprocess.py:4-22): a ``window`` slides by
+``step`` while a full window fits, then one zero-padded tail window
+starts at the next step offset, so ``pad_end >= 1`` always.
 """
 
 from __future__ import annotations
@@ -26,6 +32,26 @@ def mad_normalise_np(signal: np.ndarray, outlier_clip: float) -> np.ndarray:
         raise ValueError("MAD is zero, issue with signal.")
     z = (signal - median) / (MAD_SCALE * mad)
     return np.clip(z, -outlier_clip, outlier_clip)
+
+
+def get_windows_np(signal: np.ndarray, window_size: int, step_size: int):
+    """Host-side overlapped windowing; returns ``(windows, pad_end)``."""
+    if step_size <= 0:
+        raise ValueError("Step size must be > 0")
+    if step_size > window_size:
+        raise ValueError("Step size must be <= window size")
+    length = signal.shape[0]
+    n_full = max((length - window_size) // step_size + 1, 0)
+    tail_start = n_full * step_size
+    tail = signal[tail_start:]
+    pad_end = window_size - tail.shape[0]
+    windows = np.zeros((n_full + 1, window_size), dtype=signal.dtype)
+    if n_full > 0:
+        idx = (np.arange(n_full)[:, None] * step_size
+               + np.arange(window_size)[None, :])
+        windows[:n_full] = signal[idx]
+    windows[n_full, : tail.shape[0]] = tail
+    return windows, pad_end
 
 
 def _masked_median(sorted_vals: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -65,3 +91,43 @@ def mad_normalise(signals: torch.Tensor, lengths: torch.Tensor,
 def bucket_length(length: int, quantum: int = 4096) -> int:
     """Round a read length up to its bucket (fixed batch shapes)."""
     return max(((length + quantum - 1) // quantum) * quantum, quantum)
+
+
+def max_windows_for(bucket: int, window_size: int, step_size: int) -> int:
+    """Upper bound on the window count of a signal of ``bucket`` samples."""
+    n_full = max((bucket - window_size) // step_size + 1, 0)
+    return n_full + 1
+
+
+def window_signal(signals: torch.Tensor, lengths: torch.Tensor,
+                  window_size: int, step_size: int, max_windows: int):
+    """Overlapped windowing of a batch of length-padded signals.
+
+    Returns ``(windows [N, max_windows, window_size], n_windows [N],
+    pad_end [N])``.  Rows at index ``>= n_windows`` repeat the tail
+    window and must be masked by the caller.
+    """
+    n = lengths.to(device=signals.device, dtype=torch.int64)
+    n_full = torch.clamp((n - window_size) // step_size + 1, min=0)
+    tail_start = n_full * step_size
+    pad_end = window_size - (n - tail_start)
+    w = torch.arange(max_windows, device=signals.device)
+    starts = torch.minimum(w[None, :] * step_size, tail_start[:, None])
+    idx = (starts[..., None]
+           + torch.arange(window_size, device=signals.device))  # [N, W, T]
+    gathered = signals.gather(
+        1, torch.minimum(idx, n[:, None, None] - 1).flatten(1))
+    windows = torch.where(idx < n[:, None, None], gathered.view(idx.shape),
+                          torch.zeros((), device=signals.device))
+    return windows, n_full + 1, pad_end
+
+
+def preprocess_read(signals: torch.Tensor, lengths: torch.Tensor,
+                    window_size: int = 1024, step_size: int = 128,
+                    max_windows: int = 1, outlier_clip: float = 4.0):
+    """Normalise then window a batch of reads: ``(windows, n_windows,
+    pad_end, mad)``; a zero or non-finite ``mad`` marks a skipped read."""
+    norm, mad = mad_normalise(signals, lengths, outlier_clip)
+    windows, n_windows, pad_end = window_signal(
+        norm, lengths, window_size, step_size, max_windows)
+    return windows, n_windows, pad_end, mad

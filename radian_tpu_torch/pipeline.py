@@ -1,29 +1,45 @@
-"""End-to-end global-mode basecalling (counterpart of radian_tpu/pipeline.py).
+"""End-to-end basecalling (counterpart of radian_tpu/pipeline.py).
 
 Reads are sorted by length, grouped into length buckets and fixed-size
-padded batches, and each batch runs on the device:
+padded batches, and each batch runs on the device.  Global mode:
 
   MAD-normalise → one causal full-read TCN forward (float32 or
   bfloat16) → "first"-assembly renormalise/trim → CTC beam search (a
   CUDA kernel, with the k-mer LM fused in when one is given) →
   nibble-packed labels
 
-while the host does fast5 ingest, padding, label rendering and fasta
-output.  Ported so far: global decode with or without the LM (dense or
-packed tables, float32 or bfloat16), 'first' assembly via the full-read
-forward.  Options outside it raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Chunk mode (reference basecall.py:111-123) decodes each overlapped
+window on its own and stitches the fragments on the host:
+
+- 'fused' (the default): one full-read forward, a zero-history forward
+  over each window's first ``head`` samples, every window of the batch
+  decoded in one launch, labels compacted and 2-bit packed, then the
+  C++ consensus stitch (``ops/consensus.py``);
+- 'windows': the forward over every whole window, the same decode and
+  stitch (nibble-packed labels);
+- 'fullprobs': windows sliced straight from the full-read forward (no
+  head fix-up); with the tiled centre crop every ``crop_stride``-th
+  window keeps a span of labels that partition the read, so the stitch
+  is a concatenation, and ``chunk_lm`` fuses the LM into that decode.
+
+The host does fast5 ingest, padding, label rendering, the stitch and
+fasta output, in batches or streaming.  Options outside the ported
+paths raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import os
 import time
 from pathlib import Path
-from typing import Iterable, Sequence
+from typing import Iterable, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from radian_tpu_torch.config import DotDict, default_config
 from radian_tpu_torch.io.fast5 import Fast5Read, iter_fast5_dir
@@ -40,9 +56,21 @@ from radian_tpu_torch.ops.beam_search import (
     LMFusion,
     labels_to_seq,
     pack_labels,
+    pack_labels2,
+    rows_to_seqs,
     unpack_labels,
+    unpack_labels2,
 )
-from radian_tpu_torch.ops.preprocess import bucket_length, mad_normalise
+from radian_tpu_torch.ops.consensus import (
+    assemble_fragments,
+    assemble_read_packed2,
+)
+from radian_tpu_torch.ops.preprocess import (
+    bucket_length,
+    mad_normalise,
+    max_windows_for,
+    preprocess_read,
+)
 
 
 # Packed-vs-dense LM layout cut, in bytes of the packed tables: the JAX
@@ -65,13 +93,46 @@ def _packed_lm_bound_bytes(lm: KmerLM) -> int:
 
 _TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# Samples a chunk-mode head or window forward takes at once: the global
+# path's largest batch (256 reads of 16,384 samples), so those forwards
+# peak near the global forward's memory instead of holding every
+# window's activations at once.
+FORWARD_GROUP_SAMPLES = 256 * 16384
+
+# Samples a base dwells, for chunk_lm's warm-up guard: the JAX package's
+# comments count the crop's 640 samples of decode warm-up as ~16 bases
+# (radian_tpu/pipeline.py:190, :521-523).
+SAMPLES_PER_BASE = 40
+
+# Host threads of the chunk consensus stitch (ctypes releases the GIL
+# for the C++ call), made at first use
+_STITCH_POOL = None
+
+
+def _stitch_pool() -> concurrent.futures.ThreadPoolExecutor:
+    global _STITCH_POOL
+    if _STITCH_POOL is None:
+        _STITCH_POOL = concurrent.futures.ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            thread_name_prefix="radian-stitch")
+    return _STITCH_POOL
+
 
 @dataclasses.dataclass(frozen=True)
 class BasecallOptions:
     """Decode options; same fields and defaults as the JAX package's
-    ``BasecallOptions`` (reference basecall.py:19-37 CLI defaults).  The
-    chunk-mode fields are accepted for symmetry and unused by this slice,
-    which rejects the values that would need them."""
+    ``BasecallOptions`` (reference basecall.py:19-37 CLI defaults).
+
+    Chunk mode (``decode_type='chunk'``): ``chunk_prep`` picks the path
+    ('auto' = 'fused' when the geometry allows, else 'windows'; see the
+    module docstring); ``chunk_max_lab`` caps a window's emissions in
+    the fused paths' compaction (rounded down to a multiple of 4; a
+    window over it raises on the host); ``chunk_crop`` and
+    ``chunk_crop_stride`` set 'fullprobs'' tiled centre crop, and
+    ``chunk_lm`` fuses the LM into it.  ``chunk_slab`` is accepted for
+    symmetry: the port decodes all of a batch's windows in one launch.
+    ``consensus='device'`` is not ported.
+    """
 
     chunk_len: int = 1024
     step_size: int = 128
@@ -82,7 +143,7 @@ class BasecallOptions:
     rna_threshold: float = 0.5
     context_len: int = 11
     assembly_mode: str = "first"  # reference parity; 'mean' = corrected
-    read_batch: int = 8  # reads decoded concurrently (global mode)
+    read_batch: int = 8  # reads a batch (padded to this many rows)
     bucket_quantum: int = 4096
     # optional fixed bucket ladder: lengths round up to the smallest entry
     # (quantum rounding above the top entry)
@@ -167,11 +228,191 @@ def _prep_model_assemble_fullread(model: SigToSeq, signals, lengths, *,
     return mats, t_reads, mads
 
 
+# -- chunk mode ------------------------------------------------------------
+
+def _model_in_groups(model: SigToSeq, x: torch.Tensor) -> torch.Tensor:
+    """``[R, T]`` signal rows → ``[R, T, 5]`` probabilities, the model run
+    on at most FORWARD_GROUP_SAMPLES samples at a time."""
+    rows = max(1, FORWARD_GROUP_SAMPLES // max(1, x.shape[1]))
+    return torch.cat([model(x[i:i + rows, :, None], probs=True)
+                      for i in range(0, x.shape[0], rows)])
+
+
+def _window_lengths(n_wins, pad_ends, n_rows: int, window: int):
+    """``[N, n_rows]`` decode lengths: full windows, the last one trimmed
+    of its padding (reference basecall.py:96), 0 from ``n_wins`` on."""
+    w_idx = torch.arange(n_rows, device=n_wins.device)[None, :]
+    lens = torch.where(w_idx == n_wins[:, None] - 1,
+                       window - pad_ends[:, None], window)
+    return torch.where(w_idx < n_wins[:, None], lens, 0)
+
+
+def _prep_and_model(model: SigToSeq, signals, lengths, *,
+                    opts: BasecallOptions, max_windows: int):
+    """``[N, L]`` padded signals → per-window probabilities ``[N,
+    max_windows, chunk_len, 5]`` (the 'windows' path's forward), with
+    ``(n_wins, pad_ends, mads)``."""
+    windows, n_wins, pad_ends, mads = preprocess_read(
+        signals, lengths, opts.chunk_len, opts.step_size, max_windows,
+        opts.outlier_clip)
+    n, w, t = windows.shape
+    probs = _model_in_groups(model, windows.reshape(n * w, t))
+    return probs.reshape(n, w, t, -1), n_wins, pad_ends, mads
+
+
+def _decode_windows(probs, n_wins, pad_ends, *, opts: BasecallOptions):
+    """Every window decoded on its own, no LM (reference
+    basecall.py:111-121) → ``(nibble-packed labels [N, W, T/2], n_labels
+    [N, W])``."""
+    n, w, t, c = probs.shape
+    lens = _window_lengths(n_wins, pad_ends, w, opts.chunk_len)
+    rev, n_lab, _ = beam_search_cuda(probs.reshape(n * w, t, c),
+                                     lens.reshape(-1), opts.beam_width)
+    return pack_labels(rev).reshape(n, w, t // 2), n_lab.reshape(n, w)
+
+
+class ChunkGeometry(NamedTuple):
+    """Window accounting of the fused chunk paths, int64 tensors."""
+
+    n_dec: torch.Tensor  # [N] windows decoded
+    tail_start: torch.Tensor  # [N] absolute start of the tail window
+    starts: torch.Tensor  # [N, D] absolute start of each decoded window
+    lens: torch.Tensor  # [N, D] its decode length, 0 from n_dec on
+
+
+def _chunk_geometry(lengths, *, window: int, step: int, stride: int,
+                    max_windows: int) -> ChunkGeometry:
+    """Decoded window ``d`` of a read starts at ``d·stride·step``, clipped
+    to the tail window's start; ``stride`` is 1 but in the tiled crop.
+    ``D`` covers a bucket's most windows."""
+    ln = lengths.long()
+    n_full = torch.clamp((ln - window) // step + 1, min=0)
+    tail_start = n_full * step
+    pad_ends = window - (ln - tail_start)
+    n_dec = (n_full + stride - 1) // stride + 1
+    n_rows = -((max_windows - 1) // -stride) + 1
+    w_idx = torch.arange(n_rows, device=ln.device)
+    starts = torch.minimum(w_idx[None, :] * (stride * step),
+                           tail_start[:, None])
+    return ChunkGeometry(n_dec, tail_start, starts,
+                         _window_lengths(n_dec, pad_ends, n_rows, window))
+
+
+def _crop_spans(geom: ChunkGeometry, *, step: int, crop_off: int,
+                stride: int):
+    """``(lo, hi)`` ``[N, D]``: the time steps ``[lo, hi)`` of its window
+    that each decoded window keeps in the tiled centre crop.
+
+    Window ``d`` keeps ``[crop_off, crop_off + stride·step)``: consecutive
+    spans are contiguous in absolute time, so they partition the read.
+    The first window keeps its left edge and the last (the tail) its
+    right edge, the read's own edges; the window before the tail stops
+    where the tail's span starts (``tail_start + crop_off``).
+    """
+    d = torch.arange(geom.starts.shape[1], device=geom.starts.device)
+    is_last = d[None, :] == geom.n_dec[:, None] - 1
+    lo = torch.where(d == 0, 0, crop_off)[None, :].expand_as(geom.starts)
+    hi = torch.where(is_last, geom.lens, torch.minimum(
+        torch.full_like(geom.starts, crop_off + stride * step),
+        geom.tail_start[:, None] + crop_off - geom.starts))
+    return lo, hi
+
+
+def _compact_pack2(rev: torch.Tensor, cap: int) -> torch.Tensor:
+    """Each row's emissions (labels >= 0) moved to its front, keeping
+    their order, the first ``cap`` kept, 2-bit packed → ``[R, cap/4]`` uint8:
+    the bytes of the JAX package's sort on ``t·8 + label`` keys (the
+    caller checks the counts against ``cap``)."""
+    emit = rev >= 0
+    slot = torch.where(emit, emit.cumsum(1) - 1, cap).clamp_(max=cap)
+    comp = torch.full((rev.shape[0], cap + 1), -1, dtype=rev.dtype,
+                      device=rev.device)
+    # slot ``cap`` takes the copy steps and any overflow, and is dropped
+    comp.scatter_(1, slot, rev)
+    return pack_labels2(comp[:, :cap])
+
+
+def _chunk_fullread(model: SigToSeq, signals, lengths, *,
+                    opts: BasecallOptions):
+    """Normalise, then ONE causal forward over each whole read,
+    zero-extended by ``chunk_len`` so the tail window's padding exists in
+    it too → ``(norm [N, L], probs_full [N, L + chunk_len, 5], mads)``.
+
+    The TCN is causal with receptive field RF, so a window's output at
+    in-window position ``p >= RF-1`` is the full-read output at its
+    absolute position.  A bfloat16 forward stores ``probs_full`` in
+    bfloat16, as the JAX package does.
+    """
+    norm, mads = mad_normalise(signals, lengths, opts.outlier_clip)
+    probs_full = model(F.pad(norm, (0, opts.chunk_len))[..., None],
+                       probs=True)
+    if model.compute_dtype == torch.bfloat16:
+        probs_full = probs_full.to(torch.bfloat16)
+    return norm, probs_full, mads
+
+
+def _chunk_window_probs(model: SigToSeq, norm, probs_full,
+                        geom: ChunkGeometry, *, head: int, window: int):
+    """Each decoded window's probabilities, ``[N·D, window, 5]`` float32.
+
+    Steps ``[head, window)`` come from the full-read pass at their
+    absolute positions; steps ``[0, head)`` from a zero-history forward
+    over the window's first ``head`` samples, the reference's window
+    start (``head`` = RF-1 rounded up to 128).  With ``head == 0``
+    ('fullprobs') every step comes from the full-read pass.
+    """
+    n, d = geom.starts.shape
+    dev = norm.device
+    rows = torch.arange(n, device=dev)[:, None]
+    tidx = geom.starts[..., None] + torch.arange(head, window, device=dev)
+    probs = probs_full[rows, tidx.reshape(n, -1)].reshape(
+        n * d, window - head, -1)
+    if head:
+        # norm is zero past a read's length; the clamp only keeps the
+        # index inside the bucket
+        hidx = geom.starts[..., None] + torch.arange(head, device=dev)
+        strips = norm[rows, torch.clamp(hidx.reshape(n, -1),
+                                        max=norm.shape[1] - 1)]
+        head_probs = _model_in_groups(model, strips.reshape(n * d, head))
+        probs = torch.cat([head_probs.to(probs.dtype), probs], 1)
+    return probs.float()
+
+
+def _chunk_decode(probs, geom: ChunkGeometry, *, opts: BasecallOptions,
+                  max_lab: int, crop_off: int, stride: int,
+                  lm: LMFusion | None):
+    """All of a batch's windows decoded in one launch → ``(2-bit-packed
+    compacted labels [N, D, max_lab/4] uint8, n_labels [N, D] int32)``.
+
+    With ``crop_off > 0`` (the tiled crop) only each window's kept span
+    of labels survives (``_crop_spans``) and the counts are of those.
+    Backtraced column ``k`` is time step ``window-1-k``.
+    """
+    n, d = geom.starts.shape
+    lens = geom.lens.reshape(-1)
+    if lm is None:
+        rev, n_lab, _ = beam_search_cuda(probs, lens, opts.beam_width)
+    else:
+        rev, n_lab, _ = beam_search_lm_cuda(probs, lens, opts.beam_width,
+                                            lm)
+    if crop_off > 0:
+        window = probs.shape[1]
+        lo, hi = _crop_spans(geom, step=opts.step_size, crop_off=crop_off,
+                             stride=stride)
+        t = window - 1 - torch.arange(window, device=rev.device)[None, :]
+        keep = (t >= lo.reshape(-1, 1)) & (t < hi.reshape(-1, 1))
+        rev = torch.where(keep, rev, -1)
+        n_lab = (rev >= 0).sum(1)
+    return (_compact_pack2(rev, max_lab).reshape(n, d, max_lab // 4),
+            n_lab.reshape(n, d).to(torch.int32))
+
+
 class Basecaller:
-    """Bucketed, batched global-mode basecaller on one device.
+    """Bucketed, batched basecaller on one device, global or chunk mode.
 
     ``lm`` (a ``KmerLM`` of ``options.context_len``) fuses the k-mer LM
-    into the decode; its tables go to the device once, here, packed
+    into the global decode, or with ``options.chunk_lm`` into the tiled
+    chunk decode; its tables go to the device once, here, packed
     (``KmerLM.compressed()``) when that is under
     ``options.packed_lm_max_bytes`` and dense otherwise, in
     ``options.lm_table_dtype``.
@@ -191,19 +432,23 @@ class Basecaller:
         self.options = o = options or BasecallOptions()
         if mesh is not None:
             raise unported("mesh", "multi-GPU")
-        if o.decode_type != "global":
-            raise unported(f"decode_type={o.decode_type!r}", "chunk modes")
-        if o.chunk_lm:
-            raise unported("chunk_lm", "chunk modes")
-        if o.assembly_mode != "first":
-            raise unported(f"assembly_mode={o.assembly_mode!r}",
-                           "strips/windows/mean")
-        if o.prep_mode not in ("auto", "fullread"):
-            raise unported(f"prep_mode={o.prep_mode!r}",
-                           "strips/windows/mean")
+        if o.decode_type not in ("global", "chunk"):
+            raise ValueError(f"decode_type={o.decode_type!r}: 'global' or "
+                             "'chunk'")
+        if o.consensus == "device":
+            raise unported("consensus='device'", "device consensus")
+        if o.consensus != "reference":
+            raise ValueError(f"consensus={o.consensus!r}: 'reference' or "
+                             "'device'")
         if o.decode_backend != "auto":
             raise ValueError(f"decode_backend={o.decode_backend!r}: the "
                              "port decodes with its CUDA kernel ('auto')")
+        if o.beam_width > MAX_BEAM:
+            raise NotImplementedError(
+                f"beam_width {o.beam_width} > {MAX_BEAM}: the reference's "
+                "int8 backpointers (parent*8 + append+1) overflow from beam "
+                "17 on, so wider beams have no reference to hold the port "
+                "to (ROADMAP.md, Queue 3: int8 backpointer overflow)")
         self.device = resolve_device(device)
         self.lm_fusion = (None if lm is None
                           else self._lm_tables(lm, compute_dtype))
@@ -212,18 +457,80 @@ class Basecaller:
         self.model.to(self.device).eval()
         rf = self.model.receptive_field
         strip_ctx = -(-(rf - 1 + o.step_size) // 128) * 128 - o.step_size
-        if o.chunk_len % o.step_size or o.chunk_len - o.step_size < strip_ctx:
-            # the JAX package falls back to the windowed forward here
-            raise unported(
-                f"window {o.chunk_len} / step {o.step_size} (the full-read "
-                f"forward needs step | window and window-step >= {strip_ctx})",
-                "strips/windows/mean")
-        if o.beam_width > MAX_BEAM:
-            raise NotImplementedError(
-                f"beam_width {o.beam_width} > {MAX_BEAM}: the reference's "
-                "int8 backpointers (parent*8 + append+1) overflow from beam "
-                "17 on, so wider beams have no reference to hold the port "
-                "to (ROADMAP.md, Queue 3: int8 backpointer overflow)")
+        fullread_ok = (o.chunk_len % o.step_size == 0
+                       and o.chunk_len - o.step_size >= strip_ctx)
+        if o.decode_type == "global":
+            if o.assembly_mode != "first":
+                raise unported(f"assembly_mode={o.assembly_mode!r}",
+                               "strips/windows/mean")
+            if o.prep_mode not in ("auto", "fullread"):
+                raise unported(f"prep_mode={o.prep_mode!r}",
+                               "strips/windows/mean")
+            if not fullread_ok:
+                # the JAX package falls back to the windowed forward here
+                raise unported(
+                    f"window {o.chunk_len} / step {o.step_size} (the "
+                    "full-read forward needs step | window and window-step "
+                    f">= {strip_ctx})", "strips/windows/mean")
+        elif o.prep_mode in ("strips", "fullread"):
+            raise ValueError(
+                f"prep_mode={o.prep_mode!r} requires global decode, "
+                "'first' assembly, step | window, and window-step >= ctx "
+                f"({strip_ctx})")
+        self._chunk_setup(rf, lm is not None)
+
+    def _chunk_setup(self, rf: int, has_lm: bool) -> None:
+        """Chunk-mode geometry (radian_tpu/pipeline.py:761-812): the head
+        fix-up length, whether the fused path applies, the tiled crop's
+        offset and stride, and the ``chunk_lm`` checks."""
+        o = self.options
+        # zero-history fix-up: RF-1 rounded up to 128; none in 'fullprobs'
+        self.chunk_head = (0 if o.chunk_prep == "fullprobs"
+                           else -(-(rf - 1) // 128) * 128)
+        self.use_chunk_fused = (
+            o.decode_type == "chunk"
+            and o.chunk_prep in ("auto", "fused", "fullprobs")
+            and self.chunk_head < o.chunk_len
+            and o.chunk_max_lab % 2 == 0)
+        if o.chunk_prep in ("fused", "fullprobs") and not self.use_chunk_fused:
+            raise ValueError(
+                f"chunk_prep={o.chunk_prep!r} needs head {self.chunk_head} < "
+                f"chunk_len {o.chunk_len} and an even chunk_max_lab")
+        # tiled crop ('fullprobs' only): the widest stride <= chunk_crop_
+        # stride whose kept span leaves >= RF-1 steps of decode warm-up on
+        # its left and one step of margin on its right
+        crop_off, stride = 0, 1
+        if o.chunk_prep == "fullprobs" and o.chunk_crop:
+            for k in range(o.chunk_crop_stride, 0, -1):
+                off_k = o.chunk_len - (k + 1) * o.step_size
+                if off_k >= rf - 1:
+                    crop_off, stride = off_k, k
+                    break
+        # tiled only where the device crops (crop_off > 0): a 0 offset
+        # would concatenate whole overlapping windows (a deviation from
+        # the JAX package, ROADMAP Queue 3)
+        self.chunk_tiled = crop_off > 0
+        self.crop_off, self.crop_stride = (crop_off, stride) \
+            if self.chunk_tiled else (0, 1)
+        self.chunk_lm = bool(o.chunk_lm)
+        if self.chunk_lm and not (self.chunk_tiled and has_lm):
+            raise ValueError(
+                "chunk_lm needs lm= and the tiled crop "
+                "(chunk_prep='fullprobs', chunk_crop=True)")
+        if self.chunk_lm and \
+                self.crop_off // SAMPLES_PER_BASE < o.context_len:
+            # a deviation from the JAX package, ROADMAP Queue 3
+            raise ValueError(
+                f"chunk_lm needs at least context_len {o.context_len} "
+                f"bases of decode warm-up before a kept span: the crop "
+                f"leaves {self.crop_off} samples, ~"
+                f"{self.crop_off // SAMPLES_PER_BASE} bases at "
+                f"~{SAMPLES_PER_BASE} samples a base; lengthen chunk_len "
+                "or shorten step_size")
+        # the effective compaction cap: chunk_max_lab and chunk_len each
+        # rounded down to a multiple of 4 for the 2-bit packing
+        self.chunk_cap = min(o.chunk_max_lab - o.chunk_max_lab % 4,
+                             o.chunk_len - o.chunk_len % 4)
 
     def _lm_tables(self, lm: KmerLM, compute_dtype) -> LMFusion:
         """The LM's tables on the device, in the layout and dtype the
@@ -274,6 +581,41 @@ class Basecaller:
             rev, n_lab, _ = beam_search_lm_cuda(
                 mats, t_reads, self.options.beam_width, self.lm_fusion)
         return pack_labels(rev), n_lab
+
+    # the fused chunk paths in three steps, each a method for timing
+
+    def chunk_geometry(self, lengths: torch.Tensor,
+                       bucket: int) -> ChunkGeometry:
+        """The decoded windows of a batch of ``bucket``-sample reads."""
+        o = self.options
+        return _chunk_geometry(
+            lengths.to(self.device), window=o.chunk_len, step=o.step_size,
+            stride=self.crop_stride,
+            max_windows=max_windows_for(bucket, o.chunk_len, o.step_size))
+
+    @torch.inference_mode()
+    def chunk_forward(self, signals: torch.Tensor, lengths: torch.Tensor):
+        """Padded ``[N, L]`` batch → ``(norm, probs_full [N, L + chunk_len,
+        5], mads)``: the full-read forward."""
+        return _chunk_fullread(self.model, signals, lengths,
+                               opts=self.options)
+
+    @torch.inference_mode()
+    def chunk_window_probs(self, norm, probs_full, geom: ChunkGeometry):
+        """→ ``[N·D, chunk_len, 5]`` float32: the decoded windows, their
+        heads from the zero-history fix-up forward ('fused')."""
+        return _chunk_window_probs(self.model, norm, probs_full, geom,
+                                   head=self.chunk_head,
+                                   window=self.options.chunk_len)
+
+    @torch.inference_mode()
+    def chunk_decode(self, probs: torch.Tensor, geom: ChunkGeometry):
+        """→ ``(packed labels [N, D, cap/4] uint8, n_labels [N, D])``: one
+        decode launch over every window, the crop, the compaction."""
+        return _chunk_decode(
+            probs, geom, opts=self.options, max_lab=self.chunk_cap,
+            crop_off=self.crop_off, stride=self.crop_stride,
+            lm=self.lm_fusion if self.chunk_lm else None)
 
     # -- host orchestration ----------------------------------------------
 
@@ -354,21 +696,144 @@ class Basecaller:
             self._collect_batch(pend, results)
         return results
 
+    @torch.inference_mode()
     def _dispatch_batch(self, idxs, bucket, signals):
+        """Queue one batch's device work; returns the record that
+        ``_collect_batch`` turns into strings: ``(mode, idxs, mads,
+        packed labels, windows a read, n_labels or None)``."""
+        o = self.options
         padded, lengths = self.pad_batch(idxs, bucket, signals)
-        mats, t_reads, mads = self.forward(padded, lengths)
-        packed, _ = self.decode(mats, t_reads)
-        return idxs, mads, packed
+        if o.decode_type == "global":
+            mats, t_reads, mads = self.forward(padded, lengths)
+            packed, _ = self.decode(mats, t_reads)
+            return "global", idxs, mads, packed, None, None
+        if self.use_chunk_fused:
+            geom = self.chunk_geometry(lengths, bucket)
+            norm, probs_full, mads = self.chunk_forward(padded, lengths)
+            probs = self.chunk_window_probs(norm, probs_full, geom)
+            del norm, probs_full
+            packed, n_lab = self.chunk_decode(probs, geom)
+            return "chunk", idxs, mads, packed, geom.n_dec, n_lab
+        probs, n_wins, pad_ends, mads = _prep_and_model(
+            self.model, padded, lengths, opts=o,
+            max_windows=max_windows_for(bucket, o.chunk_len, o.step_size))
+        packed, _ = _decode_windows(probs, n_wins, pad_ends, opts=o)
+        return "chunk", idxs, mads, packed, n_wins, None
 
-    @staticmethod
-    def _collect_batch(pending, results):
-        idxs, mads, packed = pending
+    def _collect_batch(self, pending, results) -> None:
+        """Copy a dispatched batch's labels to the host and render (global)
+        or stitch (chunk) each read's string into ``results``."""
+        o = self.options
+        mode, idxs, mads, packed, n_wins, n_lab = pending
         mads = mads.cpu().numpy()
         bad = ~np.isfinite(mads) | (mads == 0)
-        rev = unpack_labels(packed.cpu().numpy())
-        for j, i in enumerate(idxs):
-            if not bad[j]:
-                results[i] = labels_to_seq(rev[j])  # already 5'→3'
+        packed = packed.cpu().numpy()
+        if mode == "global":
+            rev = unpack_labels(packed)
+            for j, i in enumerate(idxs):
+                if not bad[j]:
+                    results[i] = labels_to_seq(rev[j])  # already 5'→3'
+            return
+        n_wins = n_wins.cpu().numpy()
+        if n_lab is not None:
+            # the fused paths kept at most chunk_cap labels a window: a
+            # window over it would be cut short, so fail loudly instead
+            n_lab = n_lab.cpu().numpy()
+            win_valid = np.arange(n_lab.shape[1])[None, :] < n_wins[:, None]
+            row_ok = (np.arange(n_lab.shape[0]) < len(idxs)) & ~bad
+            over = (n_lab > self.chunk_cap) & win_valid & row_ok[:, None]
+            if over.any():
+                raise RuntimeError(
+                    f"chunk window emitted {int(n_lab[over].max())} labels "
+                    f"> the effective compaction cap {self.chunk_cap} "
+                    f"(chunk_max_lab {o.chunk_max_lab} rounded to a "
+                    "multiple of 4); raise BasecallOptions.chunk_max_lab")
+        if self.chunk_tiled:
+            # the kept spans partition the read, so its 5'→3' string is
+            # every window's labels as stored (last emission first), the
+            # windows last to first: one pass over the whole batch
+            live = np.arange(n_lab.shape[1])[None, :] < n_wins[:, None]
+            labs = unpack_labels2(packed, np.where(live, n_lab, 0))
+            seqs = rows_to_seqs(labs[:, ::-1].reshape(len(labs), -1),
+                                reverse=False)
+            for j, i in enumerate(idxs):
+                if not bad[j]:
+                    results[i] = seqs[j]
+            return
+
+        def stitch_one(j):
+            w = int(n_wins[j])
+            if n_lab is None:
+                # 'windows': nibble-packed labels over each whole window
+                frags = rows_to_seqs(unpack_labels(packed[j, :w]))
+                seq = assemble_fragments(frags)
+            else:
+                seq = assemble_read_packed2(packed[j, :w], n_lab[j, :w])
+            return seq[::-1]  # 5'→3' like the reference driver
+
+        todo = [(j, i) for j, i in enumerate(idxs) if not bad[j]]
+        if len(todo) > 3:
+            seqs = _stitch_pool().map(stitch_one, [j for j, _ in todo])
+        else:
+            seqs = map(stitch_one, [j for j, _ in todo])
+        for (_, i), seq in zip(todo, seqs):
+            results[i] = seq
+
+    def basecall_stream(self, reads: Iterable[Fast5Read],
+                        writer: FastaWriter,
+                        verbose: bool = True) -> tuple[int, int]:
+        """Streaming basecall: bounded memory, fasta written in read order.
+
+        Reads are taken from ``reads`` one at a time and grouped by
+        bucket; a bucket's batch is dispatched when it is full (the rest
+        at the end), two batches in flight, and the in-order prefix of
+        finished reads is written as it completes.  Returns
+        ``(written, total)``.
+        """
+        pending: dict[int, list[tuple[int, np.ndarray]]] = {}
+        results: dict[int, str | None] = {}
+        ids: dict[int, str] = {}
+        inflight: list = []
+        next_flush = n_written = n_total = 0
+
+        def collect_one():
+            nonlocal n_written, next_flush
+            rec, idx_list = inflight.pop(0)
+            out: dict[int, str | None] = {}
+            self._collect_batch(rec, out)
+            for i in idx_list:
+                results[i] = out.get(i)
+            while next_flush in results:
+                seq = results.pop(next_flush)
+                if seq is None:
+                    if verbose:
+                        print(f"{ids[next_flush]} signal issue, "
+                              "skipping this read.")
+                else:
+                    writer.write(ids[next_flush], seq)
+                    n_written += 1
+                ids.pop(next_flush, None)
+                next_flush += 1
+
+        def run(bucket, items):
+            idx_list = [i for i, _ in items]
+            inflight.append((self._dispatch_batch(idx_list, bucket,
+                                                  dict(items)), idx_list))
+            if len(inflight) >= 2:
+                collect_one()
+
+        for idx, read in enumerate(reads):
+            n_total += 1
+            ids[idx] = read.read_id
+            b = self._bucket(len(read.signal))
+            pending.setdefault(b, []).append((idx, read.signal))
+            if len(pending[b]) == self.options.read_batch:
+                run(b, pending.pop(b))
+        for b in sorted(pending):
+            run(b, pending[b])
+        while inflight:
+            collect_one()
+        return n_written, n_total
 
     def basecall_directory(
         self,
@@ -379,26 +844,27 @@ class Basecaller:
         streaming: bool = False,
     ) -> int:
         """Basecall every read under ``fast5_dir`` into fasta shards."""
-        if streaming:
-            raise unported("streaming", "streaming")
         if reads is None:
             reads = iter_fast5_dir(fast5_dir)
         t0 = time.time()
-        reads = list(reads)
-        seqs = self.basecall_signals([r.signal for r in reads])
-        n_written = 0
         with FastaWriter(fasta_dir, self.options.reads_per_fasta) as w:
-            for read, seq in zip(reads, seqs):
-                if seq is None:
-                    if verbose:
-                        print(f"{read.read_id} signal issue, "
-                              "skipping this read.")
-                    continue
-                w.write(read.read_id, seq)
-                n_written += 1
+            if streaming:
+                n_written, n_total = self.basecall_stream(reads, w, verbose)
+            else:
+                reads = list(reads)
+                n_total, n_written = len(reads), 0
+                seqs = self.basecall_signals([r.signal for r in reads])
+                for read, seq in zip(reads, seqs):
+                    if seq is None:
+                        if verbose:
+                            print(f"{read.read_id} signal issue, "
+                                  "skipping this read.")
+                        continue
+                    w.write(read.read_id, seq)
+                    n_written += 1
         if verbose:
             dt = time.time() - t0
-            print(f"Basecalled {n_written}/{len(reads)} reads in {dt:.2f}s "
+            print(f"Basecalled {n_written}/{n_total} reads in {dt:.2f}s "
                   f"({n_written / dt:.2f} reads/s)")
         return n_written
 

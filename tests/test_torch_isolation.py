@@ -33,16 +33,31 @@ def test_import_leaves_jax_out():
 
 def test_no_forbidden_imports():
     """No file of the port (or chip_smoke.py) imports JAX or the JAX
-    package.  No test module imports torch or the port at module level:
-    collection imports every test module into every xdist worker, which
-    would load torch beside tests/test_train.py (see
-    tests/torch_one_cpu.py)."""
+    package, and its native sources and build paths stay inside it: no
+    C++ or CUDA source includes a file of ``radian_tpu/`` (or any path
+    outside ``csrc/``; comments may name the kernel a source replaces), and
+    each library is built from ``radian_tpu_torch/csrc`` into
+    ``radian_tpu_torch/_build``.  No test module imports torch or the
+    port at module level: collection imports every test module into
+    every xdist worker, which would load torch beside
+    tests/test_train.py (see tests/torch_one_cpu.py)."""
+    from radian_tpu_torch import _build
+
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|radian_tpu)\b",
                      re.M)
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert PKG / "lm" / "kmer.py" in files
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
+    sources = sorted((PKG / "csrc").iterdir())
+    assert PKG / "csrc" / "seqmatch.cc" in sources
+    offenders = [f.name for f in sources
+                 if re.search(r'^\s*#\s*include\s*["<][^">]*(radian_tpu/|\.\.)',
+                              f.read_text(), re.M)]
+    assert not offenders, offenders
+    for name in ("beam_search", "beam_search_lm", "seqmatch"):
+        assert _build._source(name).parent == PKG / "csrc"
+        assert _build._target(name).parent == PKG / "_build"
     pat = re.compile(r"^(import|from)\s+(torch|radian_tpu_torch)\b", re.M)
     offenders = [f.name for f in (REPO / "tests").glob("*.py")
                  if pat.search(f.read_text())]
