@@ -6,7 +6,9 @@ the repo's trained model (bench_data/trained/params.npz, 2,200,581
 parameters): the default global-mode no-LM basecall, global mode with
 the bench's 12-mer LM fused in (float32 and bfloat16 forwards), chunk
 mode (the reference's --decode-type chunk) and chunk_lm (the tiled,
-LM-fused chunk decode), and checks them:
+LM-fused chunk decode), the global strips / windows / 'mean' forwards
+and the fallback geometry, and chunk mode with the device consensus,
+and checks them:
 
   1. device   nvidia-smi name and power limit, torch's device name
   2. build    nvcc builds every csrc/*.cu kernel and g++ the csrc/*.cc
@@ -14,7 +16,7 @@ LM-fused chunk decode), and checks them:
               parallel); ptxas registers, stack frame and spills per
               kernel instantiation
   3. kernel   no-LM beam-search kernels vs their plain PyTorch version,
-              both on the card: N=64, T up to 1,500, beams 1/2/6/8/12/16
+              both on the card: N=64, T up to 1,024, beams 1/2/6/8/12/16
               and one case with exact-zero probabilities; labels and
               n_labels identical, scores within 1e-5 absolute
   3b. lm      the LM-fused decode kernel vs its plain version the same
@@ -72,6 +74,28 @@ LM-fused chunk decode), and checks them:
               and counts, scores within 1e-5), the LM decode kernel the
               same on phase 7b's first batch; each timed there beside its
               bound, in the kernels line under "chunk"
+  8. global-prep  the global 'strips', 'windows' and 'mean' forwards
+              (f32, beam 6, read_batch 256) on phase 5's 512 reads: each
+              split per batch into bc.forward (prep, model, assembly) and
+              bc.decode ms (the split is the warm-up), then timed with the
+              launch counts set to 0 (reads/s, Msamples/s, peak GB; the
+              decode and backtrace kernels must launch, the LM kernel
+              must not); the first batch's strips and windows 'first'
+              matrices within 1e-4 of the full-read forward's from row
+              RF-1 on (the strips' first RF-1 rows differ by design, as in
+              the JAX package: printed); card strings == CPU strings on
+              phase 4's reads for the three and the fallback geometry
+              (step 96, the windowed forward); the decode and backtrace
+              kernels bit-exact vs their plain versions on the 'mean'
+              batch (its first 16 rows, lengths clamped to 2,048 steps)
+              and the decode kernel timed on all of it
+  8b. consensus-device  chunk 'fused' with consensus='device': card
+              strings == CPU strings on phase 4's reads (the card run
+              with the launch counts set to 0); on phase 7's first batch
+              the host collect with the device stitch timed beside the
+              C++ stitch's (twice each, alternating)
+
+Each phase prints its seconds ("[phase-time] step=...").
 
 Prints the nvidia-smi line, one JSON line of kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script
@@ -345,33 +369,7 @@ def e2e_lm(dev, flat, reads, small, opts):
             _fail(f"the LM path did not run through its kernels: {launches}")
         if any(not s for s in seqs):
             _fail("a read came back empty or skipped on the LM path")
-        fwd_ms, dec_ms, first = [], [], None
-        flop_per_sample = 2 * sum(p.numel() for p in bc.model.parameters()
-                                  if p.dim() > 1)
-        for idxs, bucket in bc.batches(reads):
-            sig_t, len_t = bc.pad_batch(idxs, bucket, reads)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mats, t_reads, _ = bc.forward(sig_t, len_t)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            bc.decode(mats, t_reads)
-            torch.cuda.synchronize()
-            fwd_ms.append((t1 - t0) * 1e3)
-            dec_ms.append((time.perf_counter() - t1) * 1e3)
-            tflops = flop_per_sample * sig_t.numel() / (fwd_ms[-1] * 1e9)
-            _line("e2e-lm-batch", forward=name, bucket=bucket,
-                  reads=len(idxs), forward_ms=f"{fwd_ms[-1]:.2f}",
-                  decode_ms=f"{dec_ms[-1]:.2f}",
-                  forward_tflops=f"{tflops:.1f}",
-                  decode_us_per_step=f"{dec_ms[-1] * 1e3 / bucket:.2f}")
-            if first is None:
-                first = (mats, t_reads.to(torch.int32))
-            else:
-                del mats, t_reads
-        _line("e2e-lm", forward=name,
-              forward_ms_per_batch=f"{np.mean(fwd_ms):.2f}",
-              decode_ms_per_batch=f"{np.mean(dec_ms):.2f}")
+        first = global_split(bc, reads, "e2e-lm", forward=name)
         want = Basecaller(params, lm=lm, options=small_opts,
                           compute_dtype=dtype,
                           device="cpu").basecall_signals(small)
@@ -519,13 +517,16 @@ def read_launches() -> dict:
             "beam_backtrace": beam_cuda.beam_backtrace_cuda.launches}
 
 
-def timed_run(dev, bc, reads, phase: str, **kv) -> tuple[list, dict]:
-    """A warm-up run, then a timed run of ``bc.basecall_signals`` with
-    every launch count set to 0 just before it; prints reads/s,
-    Msamples/s and peak memory; returns the strings and the counts."""
+def timed_run(dev, bc, reads, phase: str, warm: bool = True,
+              **kv) -> tuple[list, dict]:
+    """A warm-up run (unless the caller ran these batches already), then
+    a timed run of ``bc.basecall_signals`` with every launch count set to
+    0 just before it; prints reads/s, Msamples/s and peak memory; returns
+    the strings and the counts."""
     import torch
 
-    bc.basecall_signals(reads)  # warm-up: cuDNN plans, allocator, library
+    if warm:
+        bc.basecall_signals(reads)  # cuDNN plans, allocator, library
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_launches()
@@ -822,6 +823,210 @@ def chunk_kernels(dev, chunk_run, lm_run, w: int) -> dict:
     return out
 
 
+def global_split(bc, reads, phase: str, **kv) -> tuple:
+    """Per-batch ``bc.forward`` (prep, model, assembly) and ``bc.decode``
+    ms of a global path, synchronised after each, with the forward's
+    TFLOP/s.  Returns the first batch's ``(mats, t_reads)``."""
+    import torch
+
+    fwd_ms, dec_ms, first = [], [], None
+    # model FLOPs per sample: 2 per weight (conv kernels and dense matrices)
+    flop_per_sample = 2 * sum(p.numel() for p in bc.model.parameters()
+                              if p.dim() > 1)
+    for idxs, bucket in bc.batches(reads):
+        sig_t, len_t = bc.pad_batch(idxs, bucket, reads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mats, t_reads, _ = bc.forward(sig_t, len_t)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bc.decode(mats, t_reads)
+        torch.cuda.synchronize()
+        fwd_ms.append((t1 - t0) * 1e3)
+        dec_ms.append((time.perf_counter() - t1) * 1e3)
+        tflops = flop_per_sample * sig_t.numel() / (fwd_ms[-1] * 1e9)
+        _line(f"{phase}-batch", **kv, bucket=bucket, reads=len(idxs),
+              T=mats.shape[1], forward_ms=f"{fwd_ms[-1]:.2f}",
+              decode_ms=f"{dec_ms[-1]:.2f}", forward_tflops=f"{tflops:.1f}",
+              decode_us_per_step=f"{dec_ms[-1] * 1e3 / mats.shape[1]:.2f}")
+        if first is None:
+            first = (mats, t_reads.to(torch.int32))
+        else:
+            del mats, t_reads
+    _line(phase, **kv, forward_ms_per_batch=f"{np.mean(fwd_ms):.2f}",
+          decode_ms_per_batch=f"{np.mean(dec_ms):.2f}")
+    return first
+
+
+def global_prep(dev, reads, small, opts) -> dict:
+    """Phase 8: the global 'strips', 'windows' and 'mean' forwards on
+    phase 5's reads, each split per batch (the warm-up) then timed with
+    the launch counts set to 0; their first batch's matrices against the
+    full-read forward's; card vs CPU strings on phase 4's reads for the
+    three and the fallback geometry (step 96); the decode and backtrace
+    kernels vs their plain versions on the 'mean' batch.  Returns the
+    'mean' run's counts."""
+    import dataclasses
+
+    import torch
+
+    from radian_tpu_torch.ops import beam_cuda
+    from radian_tpu_torch.ops import beam_search as plain
+    from radian_tpu_torch.pipeline import load_basecaller
+
+    w = opts.beam_width
+    full = load_basecaller(TRAINED, options=opts, device=dev)
+    rf = full.model.receptive_field
+    ref = None
+    out = {}
+    for name, kw in (("strips", dict(prep_mode="strips")),
+                     ("windows", dict(prep_mode="windows")),
+                     ("mean", dict(assembly_mode="mean"))):
+        bc = load_basecaller(TRAINED, options=dataclasses.replace(opts, **kw),
+                             device=dev)
+        if bc.use_fullread or bc.use_strips is not (name == "strips"):
+            _fail(f"prep {name} did not pick its forward")
+        mats, t_reads = global_split(bc, reads, "global-prep", path=name)
+        _, launches = timed_run(dev, bc, reads, "global-prep", warm=False,
+                                path=name, forward="f32")
+        if (not launches["beam_decode"] or not launches["beam_backtrace"]
+                or launches["beam_decode_lm"]):
+            _fail(f"global {name} did not run through its kernels: "
+                  f"{launches}")
+        if ref is None:
+            idxs, bucket = full.batches(reads)[0]
+            ref, ref_t, _ = full.forward(*full.pad_batch(idxs, bucket,
+                                                          reads))
+            del full
+        if not (torch.equal(t_reads.long(), ref_t.long())
+                and torch.isfinite(mats).all()):
+            _fail(f"global {name}: lengths or values wrong on the first "
+                  "batch")
+        t_len = mats.shape[1]
+        dp = (mats - ref[:, :t_len]).abs()
+        late, early = float(dp[:, rf - 1:].max()), float(dp[:, :rf - 1].max())
+        _line("global-prep-check", path=name, T=t_len,
+              max_abs_dp_vs_fullread_from_rf=f"{late:.3e}",
+              max_abs_dp_vs_fullread_first_rf_rows=f"{early:.3e}")
+        if name != "mean" and not late <= 1e-4:
+            _fail(f"global {name} matrices differ from the full-read "
+                  f"forward's by {late} from row RF-1 on")
+        out[name] = {"launches": launches}
+        if name == "mean":
+            out["first"] = (mats, t_reads)
+        del bc, mats
+    del ref
+
+    for name, kw in (("strips", dict(prep_mode="strips")),
+                     ("windows", dict(prep_mode="windows")),
+                     ("mean", dict(assembly_mode="mean")),
+                     ("step96", dict(step_size=96))):
+        small_opts = dataclasses.replace(opts, read_batch=4, **kw)
+        want = load_basecaller(TRAINED, options=small_opts,
+                               device="cpu").basecall_signals(small)
+        got = load_basecaller(TRAINED, options=small_opts,
+                              device=dev).basecall_signals(small)
+        same = sum(a == b for a, b in zip(got, want))
+        _line("global-prep-check", path=name, reads=len(small),
+              identical_to_cpu=same, lengths=[len(x) for x in got])
+        if same != len(small):
+            _fail(f"global {name}: card strings differ from the port's CPU "
+                  "run")
+
+    # the kernels on the 'mean' batch: plain versions on its first 16
+    # rows, clamped to 2,048 steps; the decode kernel timed on all of it
+    mats, t_reads = out["first"]
+    m16 = mats[:16, :2048].contiguous()
+    l16 = torch.clamp(t_reads[:16], max=2048).contiguous()
+    logm = beam_cuda.log_probs(m16)
+    bp_k, nlab_k, sc_k = beam_cuda.beam_decode_cuda(logm, l16, w)
+    bp_p, nlab_p, sc_p = plain.beam_search_bp(logm.permute(1, 2, 0), l16, w)
+    err = float((sc_k - sc_p).abs().max())
+    rev_k = beam_cuda.beam_backtrace_cuda(bp_k)
+    rev_p = plain.backtrace_batch(bp_k.permute(1, 2, 0))
+    exact = (torch.equal(bp_k, bp_p.permute(2, 0, 1))
+             and torch.equal(nlab_k, nlab_p) and err <= 1e-5)
+    logm = beam_cuda.log_probs(mats)
+    ms = cuda_ms(lambda: beam_cuda.beam_decode_cuda(logm, t_reads, w), 3)
+    _line("global-prep-kernels", path="mean", compared_rows=16,
+          compared_steps=int(l16.sum()), max_abs_score_err=err,
+          decode_bit_exact=exact, backtrace_equal=torch.equal(rev_k, rev_p),
+          decode_ms_whole_batch=f"{ms:.3f}",
+          decode_us_per_step=f"{ms * 1e3 / mats.shape[1]:.3f}")
+    if not exact:
+        _fail("decode kernel disagrees with the plain version on the "
+              "'mean' batch")
+    if not torch.equal(rev_k, rev_p):
+        _fail("backtrace kernel disagrees with the plain version on the "
+              "'mean' batch")
+    del out["first"]
+    return out
+
+
+def device_consensus(dev, reads, small) -> dict:
+    """Phase 8b: chunk 'fused' with ``consensus='device'``: card vs CPU
+    strings on phase 4's reads (the card run with the launch counts set
+    to 0 just before it); on phase 7's first batch, the host collect
+    with the device stitch timed beside the C++ stitch's."""
+    import torch
+
+    from radian_tpu_torch.pipeline import BasecallOptions, load_basecaller
+
+    kw = dict(decode_type="chunk", beam_width=6, bucket_quantum=4096)
+    small_opts = BasecallOptions(consensus="device", read_batch=4, **kw)
+    want = load_basecaller(TRAINED, options=small_opts,
+                           device="cpu").basecall_signals(small)
+    bc = load_basecaller(TRAINED, options=small_opts, device=dev)
+    if not bc.use_chunk_fused or bc.chunk_tiled:
+        _fail("device consensus did not run on the fused path")
+    zero_launches()
+    got = bc.basecall_signals(small)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    same = sum(a == b for a, b in zip(got, want))
+    _line("consensus-device-check", path="fused", reads=len(small),
+          identical_to_cpu=same, lengths=[len(x) for x in got],
+          launches=json.dumps(launches, separators=(",", ":")))
+    if (not launches["beam_decode"] or not launches["beam_backtrace"]
+            or launches["beam_decode_lm"]):
+        _fail(f"device consensus did not run through its kernels: "
+              f"{launches}")
+    if same != len(small) or any(not x for x in got):
+        _fail("device consensus: card strings differ from the port's CPU "
+              "run")
+
+    stitch = {c: load_basecaller(TRAINED, options=BasecallOptions(
+        consensus=c, read_batch=256, **kw), device=dev)
+        for c in ("reference", "device")}
+    bc = stitch["device"]
+    idxs, bucket = bc.batches(reads)[0]
+    sig_t, len_t = bc.pad_batch(idxs, bucket, reads)
+    geom = bc.chunk_geometry(len_t, bucket)
+    norm, probs_full, mads = bc.chunk_forward(sig_t, len_t)
+    probs = bc.chunk_window_probs(norm, probs_full, geom)
+    del norm, probs_full
+    packed, n_lab = bc.chunk_decode(probs, geom)
+    torch.cuda.synchronize()
+    rec = ("chunk", idxs, mads, packed, geom.n_dec, n_lab)
+    seqs, ms = {}, {}
+    for c in ("reference", "device", "reference", "device"):
+        res = {}
+        t0 = time.perf_counter()
+        stitch[c]._collect_batch(rec, res)
+        torch.cuda.synchronize()
+        ms.setdefault(c, []).append((time.perf_counter() - t0) * 1e3)
+        seqs[c] = [res[i] for i in idxs]
+    agree = sum(a == b for a, b in zip(seqs["device"], seqs["reference"]))
+    _line("consensus-device", bucket=bucket, reads=len(idxs),
+          windows=int(geom.n_dec[:len(idxs)].sum()),
+          cpp_stitch_ms=[round(x, 2) for x in ms["reference"]],
+          device_stitch_ms=[round(x, 2) for x in ms["device"]],
+          strings_equal_to_cpp=agree)
+    if any(not x for x in seqs["device"]):
+        _fail("device consensus gave an empty string on the chunk batch")
+    return {"launches": launches}
+
+
 def synth_signals(rng, lengths, levels):
     from radian_tpu_torch.utils.synthetic import synth_read
 
@@ -855,7 +1060,14 @@ def main() -> int:
     from radian_tpu_torch.utils.synthetic import kmer_level_table
 
     dev = torch.device("cuda", 0)
-    t_start = time.perf_counter()
+    t_start = t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        _line("phase-time", step=name, seconds=f"{now - t_phase:.1f}",
+              total_s=f"{now - t_start:.1f}")
+        t_phase = now
 
     # 1. device ----------------------------------------------------------
     smi = subprocess.run(
@@ -866,6 +1078,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     _line("device", torch_name=repr(kind), count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
+
+    phase_done("1")
 
     # 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -879,9 +1093,11 @@ def main() -> int:
         for ln in ptxas_summary(rep["ptxas"]):
             print(f"  ptxas {name}: {ln}")
 
+    phase_done("2")
+
     # 3. kernel vs plain (random peaked matrices) ------------------------
     rng = np.random.default_rng(0)
-    n, t_max = 64, 1500
+    n, t_max = 64, 1024  # the plain versions step 1,024 times a case
     compared = differing = 0
     for w, zero in ((1, False), (2, False), (6, False), (8, False),
                     (12, False), (16, False), (6, True)):
@@ -908,8 +1124,12 @@ def main() -> int:
         _fail(f"beam kernel disagrees with the plain version on "
               f"{differing}/{compared} reads")
 
+    phase_done("3")
+
     # 3b. LM kernel vs plain ------------------------------------------------
     check_lm_kernel(dev, n, t_max, LM_CASES)
+
+    phase_done("3b")
 
     # 4. model on the card vs the CPU ------------------------------------
     flat = load_params_npz(TRAINED)
@@ -934,6 +1154,8 @@ def main() -> int:
           cudnn_tf32=torch.backends.cudnn.allow_tf32)
     if not dp <= 1e-4 or not torch.isfinite(probs[str(dev)]).all():
         _fail(f"card probabilities differ from the CPU by {dp}")
+
+    phase_done("4")
 
     # 5. end to end ------------------------------------------------------
     opts = BasecallOptions(beam_width=6, read_batch=256, bucket_quantum=4096)
@@ -966,33 +1188,7 @@ def main() -> int:
         _fail("a read came back empty or skipped")
 
     # per-batch split, synchronised after each program
-    fwd_ms, dec_ms = [], []
-    first = None
-    # model FLOPs per sample: 2 per weight (conv kernels and dense matrices)
-    flop_per_sample = 2 * sum(p.numel() for p in bc.model.parameters()
-                              if p.dim() > 1)
-    for idxs, bucket in bc.batches(reads):
-        sig_t, len_t = bc.pad_batch(idxs, bucket, reads)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mats, t_reads, _ = bc.forward(sig_t, len_t)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        bc.decode(mats, t_reads)
-        torch.cuda.synchronize()
-        fwd_ms.append((t1 - t0) * 1e3)
-        dec_ms.append((time.perf_counter() - t1) * 1e3)
-        tflops = flop_per_sample * sig_t.numel() / (fwd_ms[-1] * 1e9)
-        _line("e2e-batch", bucket=bucket, reads=len(idxs),
-              forward_ms=f"{fwd_ms[-1]:.2f}", decode_ms=f"{dec_ms[-1]:.2f}",
-              forward_tflops=f"{tflops:.1f}",
-              decode_us_per_step=f"{dec_ms[-1] * 1e3 / bucket:.2f}")
-        if first is None:
-            first = (mats, t_reads.to(torch.int32))
-        else:
-            del mats, t_reads
-    _line("e2e", forward_ms_per_batch=f"{np.mean(fwd_ms):.2f}",
-          decode_ms_per_batch=f"{np.mean(dec_ms):.2f}")
+    first = global_split(bc, reads, "e2e")
 
     small = sigs  # phase 4's four ~4,000-sample reads
     for beam in (6, 16):
@@ -1009,8 +1205,12 @@ def main() -> int:
             _fail(f"card strings differ from the port's CPU run at beam "
                   f"{beam}")
 
+    phase_done("5")
+
     # 5b. end to end with the LM -----------------------------------------
     lm_run = e2e_lm(dev, flat, reads, small, opts)
+
+    phase_done("5b")
 
     # 6. kernels on the main path's inputs (first batch) -----------------
     mats, t_reads = first
@@ -1059,19 +1259,37 @@ def main() -> int:
           decode_ms=f"{dec16_ms:.3f}", decode_bound_ms=f"{dec16_bound:.4f}",
           decode_us_per_step=f"{dec16_ms * 1e3 / t_b:.3f}")
 
+    phase_done("6")
+
     # 6b. the LM kernel on the LM path's first batch -----------------------
     lmk = lm_kernels(dev, lm_run, w)
     del first, mats, t_reads, logm, logm_tn, bp_k, bp_p, rev_k, rev_p
     lm_run.pop("first")
 
+    phase_done("6b")
+
     # 7. chunk mode (fused) -------------------------------------------------
     chunk_run = e2e_chunk(dev, reads, small)
+
+    phase_done("7")
 
     # 7b. chunk_lm (fullprobs, tiled crop, the bench LM) -------------------
     chunk_lm_run = e2e_chunk_lm(dev, flat, reads, small, lm_run["lm"])
 
+    phase_done("7b")
+
     # 7c. the kernels on the chunk paths' first batches --------------------
     ck = chunk_kernels(dev, chunk_run, chunk_lm_run, w)
+    del chunk_run["first"], chunk_lm_run["first"]
+    phase_done("7c")
+
+    # 8. global strips / windows / 'mean' and the fallback geometry --------
+    global_prep(dev, reads, small, opts)
+    phase_done("8")
+
+    # 8b. chunk mode with the device consensus ---------------------------
+    device_consensus(dev, reads, small)
+    phase_done("8b")
     kernels = [
         {"name": "beam_decode", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",

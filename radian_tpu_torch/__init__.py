@@ -7,21 +7,33 @@ bfloat16), and CTC prefix beam search, with or without the k-mer LM
 fused in, as hand-written CUDA kernels (``csrc/*.cu``, built with
 ``nvcc`` at first use), in
 
-- global mode ("first" assembly, one decode over each whole read), and
+- global mode, one decode over each whole read: the full-read forward
+  with "first" assembly by default; ``prep_mode`` 'strips' (each
+  window's kept rows with their context) or 'windows' (every window,
+  assembled by ``assembly_mode`` 'first' or 'mean'), which also serves
+  any window/step geometry; and
 - chunk mode (``decode_type='chunk'``): every overlapped window decoded
   on its own, then stitched on the host by the reference's consensus
   (``csrc/seqmatch.cc``, built with ``g++``) -- ``chunk_prep`` 'fused'
   (default), 'windows', or 'fullprobs' with the tiled centre crop
   (stitched by concatenation) and ``chunk_lm`` (the LM fused into that
-  decode).
+  decode); ``consensus='device'`` stitches by offset correlation on the
+  card instead (``ops/consensus_device.py``).
+
+Weights come from a flax-layout ``.npz``, the reference's Keras ``.h5``
+(``models/keras_import.py``, needs ``h5py``), or a seed: the JAX
+package's ``init_params`` for that seed, rebuilt in numpy
+(``models/init.py``).
 
 It imports ``torch`` and never ``jax`` or ``radian_tpu``.
 
 Subpackages
 -----------
-- ``radian_tpu_torch.ops``     preprocessing and windowing, beam search
-                               (plain + CUDA), the chunk consensus
-- ``radian_tpu_torch.models``  the sig2seq TCN network + flax weight bridge
+- ``radian_tpu_torch.ops``     preprocessing, windows and strips, matrix
+                               assembly, beam search (plain + CUDA), the
+                               chunk consensus (host C++ and device)
+- ``radian_tpu_torch.models``  the sig2seq TCN network, the flax weight
+                               bridge, Keras .h5 import, the seeded init
 - ``radian_tpu_torch.lm``      the k-mer LM tables (dense and packed)
 - ``radian_tpu_torch.io``      host I/O: fast5, fasta
 - ``radian_tpu_torch.cli``     basecall command line

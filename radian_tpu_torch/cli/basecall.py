@@ -1,14 +1,16 @@
 """Basecall CLI (counterpart of radian_tpu/cli/basecall.py).
 
-The JAX CLI's flags, same names and defaults, plus ``--device``.  Flags
-whose paths this package has not ported yet raise
+The JAX CLI's flags, same names and defaults, plus ``--device``.  The
+multi-GPU flags (``--mesh-data``, ``--shard-reads``) raise
 ``NotImplementedError`` naming the ROADMAP item.
 
 Usage:
     python -m radian_tpu_torch.cli.basecall FAST5_DIR FASTA_DIR --device cuda \
         [--rna-model LM.json] [--compute-dtype bfloat16] \
-        [--decode-type chunk [--chunk-prep fullprobs [--chunk-lm]]] \
-        [--streaming]
+        [--sig-model params.npz|model.h5] [--prep-mode strips|windows] \
+        [--assembly-mode mean] \
+        [--decode-type chunk [--chunk-prep fullprobs [--chunk-lm]] \
+         [--consensus device]] [--streaming]
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "contexts of --context-len bases), or 'None' to "
                         "decode without LM fusion")
     p.add_argument("--sig-model", default=None,
-                   help="checkpoint: flax-layout .npz, or omit for seeded "
-                        "init")
+                   help="checkpoint: flax-layout .npz, the reference's "
+                        "Keras .h5 (needs h5py), or omit for seeded init "
+                        "(the JAX package's weights for --seed)")
     p.add_argument("--sig-config", default=None, help="model config yaml")
     p.add_argument("--beam-width", default=6, type=int)
     p.add_argument("--decode-type", choices=["global", "chunk"],
@@ -55,8 +58,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prep-mode",
                    choices=["auto", "fullread", "strips", "windows"],
                    default="auto",
-                   help="global-mode forward; only 'auto'/'fullread' (one "
-                        "causal TCN pass over the whole read) are ported")
+                   help="global-mode forward: 'fullread' = one causal TCN "
+                        "pass over the whole read; 'strips' = each "
+                        "window's kept rows with their context; 'windows' "
+                        "= every window, then assembly (any geometry, "
+                        "needed for --assembly-mode mean); 'auto' = "
+                        "fullread where valid, else windows")
     p.add_argument("--chunk-prep",
                    choices=["auto", "fused", "fullprobs", "windows"],
                    default="auto",
@@ -78,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--consensus", choices=["reference", "device"],
                    default="reference",
                    help="chunk-mode stitch: 'reference' (difflib "
-                        "semantics, in C++); 'device' is not ported")
+                        "semantics, in C++); 'device' = offset "
+                        "correlation (4-run scoring) on the GPU")
     p.add_argument("--seed", default=0, type=int,
                    help="init seed when no --sig-model is given")
     p.add_argument("--mesh-data", type=int, default=None,

@@ -19,7 +19,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from radian_tpu_torch.config import DotDict, default_config
-from radian_tpu_torch.models.tcn import TCN, CausalConv1D, he_normal_
+from radian_tpu_torch.models.checkpoint import params_from_flax
+from radian_tpu_torch.models.init import init_params
+from radian_tpu_torch.models.tcn import TCN
 
 
 class SigToSeq(nn.Module):
@@ -37,6 +39,11 @@ class SigToSeq(nn.Module):
             raise ValueError(f"compute_dtype {compute_dtype}: float32 or "
                              "bfloat16")
         self.compute_dtype = compute_dtype
+        # the shape-giving fields of the model config, for the seeded init
+        self.config = DotDict({"model": {
+            "relu_units": relu_units, "softmax_units": softmax_units,
+            "tcn": {"nb_filters": nb_filters, "kernel_size": kernel_size,
+                    "nb_stacks": nb_stacks, "dilations": list(dilations)}}})
         self.tcn = TCN(nb_filters, kernel_size, nb_stacks, dilations,
                        padding, use_skip_connections, dropout_rate,
                        return_sequences, use_batch_norm)
@@ -47,15 +54,10 @@ class SigToSeq(nn.Module):
     def receptive_field(self) -> int:
         return self.tcn.receptive_field
 
-    def reset_parameters(self, generator: torch.Generator | None = None):
-        """Seeded init with flax's initialisers (he_normal kernels, zero
-        biases); the numbers differ from ``jax.random``'s."""
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                he_normal_(m.weight, m.in_features, generator)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, CausalConv1D):
-                m.reset_parameters(generator)
+    def reset_parameters(self, seed: int = 0):
+        """Seeded init: the JAX package's ``init_params(model,
+        jax.random.PRNGKey(seed))``, the same numbers (``init.py``)."""
+        self.load_state_dict(params_from_flax(init_params(self.config, seed)))
 
     def forward(self, x, *, probs: bool = False):
         """``[N, T, 1]`` signal → ``[N, T, softmax_units]`` f32."""

@@ -21,22 +21,11 @@ transposes once on the way in and once on the way out.
 
 from __future__ import annotations
 
-import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-
-def he_normal_(weight: torch.Tensor, fan_in: int,
-               generator: torch.Generator | None = None) -> torch.Tensor:
-    """Flax ``he_normal``: truncated normal (±2σ), variance 2/fan_in."""
-    # 0.8796... is the std of a unit normal truncated to [-2, 2]
-    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
-    with torch.no_grad():
-        return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
-                                     generator=generator)
 
 
 class CausalConv1D(nn.Module):
@@ -53,11 +42,6 @@ class CausalConv1D(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(features, in_channels, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features))
-
-    def reset_parameters(self, generator=None):
-        he_normal_(self.weight, self.weight.shape[1] * self.kernel_size,
-                   generator)
-        nn.init.zeros_(self.bias)
 
     def forward(self, x):
         x = F.pad(x, ((self.kernel_size - 1) * self.dilation, 0))

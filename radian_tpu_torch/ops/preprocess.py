@@ -12,6 +12,8 @@ zero or non-finite MAD marks a read the pipeline skips.
 does (reference radian/preprocess.py:4-22): a ``window`` slides by
 ``step`` while a full window fits, then one zero-padded tail window
 starts at the next step offset, so ``pad_end >= 1`` always.
+``strip_signal`` / ``preprocess_read_strips`` cut the global 'strips'
+forward's uniform ``ctx + step`` strips instead.
 """
 
 from __future__ import annotations
@@ -120,6 +122,42 @@ def window_signal(signals: torch.Tensor, lengths: torch.Tensor,
     windows = torch.where(idx < n[:, None, None], gathered.view(idx.shape),
                           torch.zeros((), device=signals.device))
     return windows, n_full + 1, pad_end
+
+
+def strip_signal(signals: torch.Tensor, lengths: torch.Tensor,
+                 step_size: int, ctx: int, n_strips: int) -> torch.Tensor:
+    """Uniform strips of a batch of normalised signals → ``[N, n_strips,
+    ctx + step]``.
+
+    Strip ``j`` covers absolute positions ``[j·step - ctx, (j+1)·step)``,
+    zero outside ``[0, length)``, so with ``ctx >= RF-1`` a causal forward
+    over it gives, at its last ``step`` positions, the reference window
+    forward's values at ``[j·step, (j+1)·step)``: the rows "first"
+    assembly keeps (the earliest window covering ``t`` has ``t``'s whole
+    receptive field in it, or the read's own zero history).
+    """
+    dev = signals.device
+    n = lengths.to(device=dev, dtype=torch.int64)
+    starts = torch.arange(n_strips, device=dev) * step_size - ctx
+    idx = starts[:, None] + torch.arange(ctx + step_size, device=dev)
+    ok = (idx >= 0)[None] & (idx[None] < n[:, None, None])
+    gathered = signals[:, torch.clamp(idx, 0, signals.shape[1] - 1)]
+    return torch.where(ok, gathered, torch.zeros((), device=dev))
+
+
+def preprocess_read_strips(signals: torch.Tensor, lengths: torch.Tensor,
+                           window_size: int = 1024, step_size: int = 128,
+                           ctx: int = 256, n_strips: int = 1,
+                           outlier_clip: float = 4.0):
+    """Normalise then strip a batch of reads: ``(strips [N, n_strips,
+    ctx+step], n_windows, pad_end, mad)``, the window accounting of
+    ``window_signal`` for the trim and renormalisation after it."""
+    norm, mad = mad_normalise(signals, lengths, outlier_clip)
+    n = lengths.to(device=signals.device, dtype=torch.int64)
+    n_full = torch.clamp((n - window_size) // step_size + 1, min=0)
+    pad_end = window_size - (n - n_full * step_size)
+    strips = strip_signal(norm, lengths, step_size, ctx, n_strips)
+    return strips, n_full + 1, pad_end, mad
 
 
 def preprocess_read(signals: torch.Tensor, lengths: torch.Tensor,

@@ -8,6 +8,11 @@ padded batches, and each batch runs on the device.  Global mode:
   CUDA kernel, with the k-mer LM fused in when one is given) →
   nibble-packed labels
 
+with, in place of the full-read forward, the forward over strips (each
+window's kept rows and their context) or over every window, assembled
+'first' or 'mean' (``ops/assembly.py``); the windowed forward serves
+any window/step geometry.
+
 Chunk mode (reference basecall.py:111-123) decodes each overlapped
 window on its own and stitches the fragments on the host:
 
@@ -17,15 +22,16 @@ window on its own and stitches the fragments on the host:
   C++ consensus stitch (``ops/consensus.py``);
 - 'windows': the forward over every whole window, the same decode and
   stitch (nibble-packed labels);
+- with ``consensus='device'`` the untiled paths stitch by offset
+  correlation on the device (``ops/consensus_device.py``);
 - 'fullprobs': windows sliced straight from the full-read forward (no
   head fix-up); with the tiled centre crop every ``crop_stride``-th
   window keeps a span of labels that partition the read, so the stitch
   is a concatenation, and ``chunk_lm`` fuses the LM into that decode.
 
 The host does fast5 ingest, padding, label rendering, the stitch and
-fasta output, in batches or streaming.  Options outside the ported
-paths raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+fasta output, in batches or streaming.  The multi-GPU options raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -46,7 +52,10 @@ from radian_tpu_torch.io.fast5 import Fast5Read, iter_fast5_dir
 from radian_tpu_torch.io.fasta import FastaWriter
 from radian_tpu_torch.lm.kmer import KmerLM, load_kmer_json
 from radian_tpu_torch.models.checkpoint import load_params_npz, params_from_flax
+from radian_tpu_torch.models.init import init_params
+from radian_tpu_torch.models.keras_import import load_keras_h5
 from radian_tpu_torch.models.sig2seq import SigToSeq, build_model
+from radian_tpu_torch.ops.assembly import assemble_matrices, row_sum
 from radian_tpu_torch.ops.beam_cuda import (
     MAX_BEAM,
     beam_search_cuda,
@@ -65,11 +74,13 @@ from radian_tpu_torch.ops.consensus import (
     assemble_fragments,
     assemble_read_packed2,
 )
+from radian_tpu_torch.ops.consensus_device import assemble_fragments_device
 from radian_tpu_torch.ops.preprocess import (
     bucket_length,
     mad_normalise,
     max_windows_for,
     preprocess_read,
+    preprocess_read_strips,
 )
 
 
@@ -131,7 +142,16 @@ class BasecallOptions:
     ``chunk_crop_stride`` set 'fullprobs'' tiled centre crop, and
     ``chunk_lm`` fuses the LM into it.  ``chunk_slab`` is accepted for
     symmetry: the port decodes all of a batch's windows in one launch.
-    ``consensus='device'`` is not ported.
+    ``consensus='device'`` stitches the untiled chunk paths' fragments
+    with ``ops/consensus_device.py`` on the Basecaller's device.
+
+    Global mode: ``prep_mode`` 'auto' takes the full-read forward where
+    the geometry allows it (step | window, window - step >= the strips'
+    context), else the windowed forward; 'strips' forwards each
+    window's kept ``step`` rows with their context; 'windows' forwards
+    every window and assembles them by ``assembly_mode`` ('first', the
+    reference's, or 'mean').  'mean' and a geometry the fast forwards
+    cannot take always run the windowed forward.
     """
 
     chunk_len: int = 1024
@@ -198,7 +218,7 @@ def _first_renorm_trim(mats, n_wins, pad_ends, *, window: int, step: int):
     i0 = torch.minimum(torch.clamp((t - window) // step + 1, min=0), nw - 1)
     i_hi = torch.minimum(t // step, nw - 1)
     count = i_hi - i0 + 1
-    ssum = mats.sum(-1, keepdim=True)
+    ssum = row_sum(mats)
     mats = torch.where((count[..., None] > 1) & (ssum > 0), mats / ssum, mats)
     mats = torch.where((t < t_reads[:, None])[..., None], mats,
                        torch.zeros((), device=mats.device))
@@ -225,6 +245,41 @@ def _prep_model_assemble_fullread(model: SigToSeq, signals, lengths, *,
     pad_ends = window - (lengths - n_full * step)
     mats, t_reads = _first_renorm_trim(probs, n_wins, pad_ends,
                                        window=window, step=step)
+    return mats, t_reads, mads
+
+
+def _prep_model_assemble_strips(model: SigToSeq, signals, lengths, *,
+                                opts: BasecallOptions, ctx: int,
+                                n_strips: int):
+    """``[N, L]`` padded signals → "first"-assembled matrices ``[N,
+    n_strips·step, 5]``: the model over uniform ``ctx + step`` strips
+    (``strip_signal``), each strip's last ``step`` outputs kept, in
+    groups of FORWARD_GROUP_SAMPLES.  ``n_strips`` is ``L // step``, so a
+    bucket that is not a multiple of ``step`` loses its last ``L % step``
+    rows, as in the JAX package.  Returns ``(mats, t_reads, mads)``."""
+    window, step = opts.chunk_len, opts.step_size
+    strips, n_wins, pad_ends, mads = preprocess_read_strips(
+        signals, lengths, window, step, ctx, n_strips, opts.outlier_clip)
+    n, s, l = strips.shape
+    probs = _model_in_groups(model, strips.reshape(n * s, l))[:, ctx:, :]
+    mats, t_reads = _first_renorm_trim(probs.reshape(n, s * step, -1),
+                                       n_wins, pad_ends, window=window,
+                                       step=step)
+    return mats, t_reads, mads
+
+
+def _prep_model_assemble_windows(model: SigToSeq, signals, lengths, *,
+                                 opts: BasecallOptions):
+    """``[N, L]`` padded signals → matrices ``[N, L, 5]`` assembled by
+    ``opts.assembly_mode`` from the forward over every window (any
+    window/step geometry).  Returns ``(mats, t_reads, mads)``."""
+    bucket = signals.shape[1]
+    probs, n_wins, pad_ends, mads = _prep_and_model(
+        model, signals, lengths, opts=opts,
+        max_windows=max_windows_for(bucket, opts.chunk_len, opts.step_size))
+    mats, t_reads = assemble_matrices(
+        probs, n_wins, pad_ends, step=opts.step_size, window=opts.chunk_len,
+        out_len=bucket, mode=opts.assembly_mode)
     return mats, t_reads, mads
 
 
@@ -435,9 +490,7 @@ class Basecaller:
         if o.decode_type not in ("global", "chunk"):
             raise ValueError(f"decode_type={o.decode_type!r}: 'global' or "
                              "'chunk'")
-        if o.consensus == "device":
-            raise unported("consensus='device'", "device consensus")
-        if o.consensus != "reference":
+        if o.consensus not in ("reference", "device"):
             raise ValueError(f"consensus={o.consensus!r}: 'reference' or "
                              "'device'")
         if o.decode_backend != "auto":
@@ -449,6 +502,12 @@ class Basecaller:
                 "int8 backpointers (parent*8 + append+1) overflow from beam "
                 "17 on, so wider beams have no reference to hold the port "
                 "to (ROADMAP.md, Queue 3: int8 backpointer overflow)")
+        if o.assembly_mode not in ("first", "mean"):
+            raise ValueError(f"assembly_mode={o.assembly_mode!r}: 'first' "
+                             "or 'mean'")
+        if o.prep_mode not in ("auto", "fullread", "strips", "windows"):
+            raise ValueError(f"prep_mode={o.prep_mode!r}: 'auto', "
+                             "'fullread', 'strips' or 'windows'")
         self.device = resolve_device(device)
         self.lm_fusion = (None if lm is None
                           else self._lm_tables(lm, compute_dtype))
@@ -456,27 +515,21 @@ class Basecaller:
         self.model.load_state_dict(params)
         self.model.to(self.device).eval()
         rf = self.model.receptive_field
-        strip_ctx = -(-(rf - 1 + o.step_size) // 128) * 128 - o.step_size
-        fullread_ok = (o.chunk_len % o.step_size == 0
-                       and o.chunk_len - o.step_size >= strip_ctx)
-        if o.decode_type == "global":
-            if o.assembly_mode != "first":
-                raise unported(f"assembly_mode={o.assembly_mode!r}",
-                               "strips/windows/mean")
-            if o.prep_mode not in ("auto", "fullread"):
-                raise unported(f"prep_mode={o.prep_mode!r}",
-                               "strips/windows/mean")
-            if not fullread_ok:
-                # the JAX package falls back to the windowed forward here
-                raise unported(
-                    f"window {o.chunk_len} / step {o.step_size} (the "
-                    "full-read forward needs step | window and window-step "
-                    f">= {strip_ctx})", "strips/windows/mean")
-        elif o.prep_mode in ("strips", "fullread"):
+        # global forward (radian_tpu/pipeline.py:705-726): the full-read
+        # or strips forward where every kept row has a whole receptive
+        # field inside its window, else the windowed forward
+        self.strip_ctx = -(-(rf - 1 + o.step_size) // 128) * 128 \
+            - o.step_size
+        fast_ok = (o.decode_type == "global" and o.assembly_mode == "first"
+                   and o.chunk_len % o.step_size == 0
+                   and o.chunk_len - o.step_size >= self.strip_ctx)
+        self.use_fullread = o.prep_mode in ("auto", "fullread") and fast_ok
+        self.use_strips = o.prep_mode == "strips" and fast_ok
+        if o.prep_mode in ("strips", "fullread") and not fast_ok:
             raise ValueError(
                 f"prep_mode={o.prep_mode!r} requires global decode, "
                 "'first' assembly, step | window, and window-step >= ctx "
-                f"({strip_ctx})")
+                f"({self.strip_ctx})")
         self._chunk_setup(rf, lm is not None)
 
     def _chunk_setup(self, rf: int, has_lm: bool) -> None:
@@ -566,9 +619,19 @@ class Basecaller:
 
     @torch.inference_mode()
     def forward(self, signals: torch.Tensor, lengths: torch.Tensor):
-        """Padded ``[N, L]`` batch → ``(mats [N, L, 5], t_reads, mads)``."""
-        return _prep_model_assemble_fullread(self.model, signals, lengths,
-                                             opts=self.options)
+        """Padded ``[N, L]`` batch → ``(mats [N, T, 5], t_reads, mads)``
+        by the global forward the constructor chose (``T = L``, or
+        ``L // step · step`` on the strips path)."""
+        o = self.options
+        if self.use_fullread:
+            return _prep_model_assemble_fullread(self.model, signals,
+                                                 lengths, opts=o)
+        if self.use_strips:
+            return _prep_model_assemble_strips(
+                self.model, signals, lengths, opts=o, ctx=self.strip_ctx,
+                n_strips=signals.shape[1] // o.step_size)
+        return _prep_model_assemble_windows(self.model, signals, lengths,
+                                            opts=o)
 
     @torch.inference_mode()
     def decode(self, mats: torch.Tensor, t_reads: torch.Tensor):
@@ -763,16 +826,25 @@ class Basecaller:
 
         def stitch_one(j):
             w = int(n_wins[j])
+            if n_lab is not None and o.consensus == "reference":
+                # 'fused': the 2-bit rows rendered and stitched in C++
+                seq = assemble_read_packed2(packed[j, :w], n_lab[j, :w])
+                return seq[::-1]
             if n_lab is None:
                 # 'windows': nibble-packed labels over each whole window
                 frags = rows_to_seqs(unpack_labels(packed[j, :w]))
-                seq = assemble_fragments(frags)
             else:
-                seq = assemble_read_packed2(packed[j, :w], n_lab[j, :w])
+                frags = rows_to_seqs(unpack_labels2(packed[j, :w],
+                                                    n_lab[j, :w]))
+            if o.consensus == "device":
+                seq = assemble_fragments_device(frags, device=self.device)
+            else:
+                seq = assemble_fragments(frags)
             return seq[::-1]  # 5'→3' like the reference driver
 
         todo = [(j, i) for j, i in enumerate(idxs) if not bad[j]]
-        if len(todo) > 3:
+        # the device stitch queues its work on the card one read at a time
+        if len(todo) > 3 and o.consensus == "reference":
             seqs = _stitch_pool().map(stitch_one, [j for j, _ in todo])
         else:
             seqs = map(stitch_one, [j for j, _ in todo])
@@ -879,9 +951,11 @@ def load_basecaller(
     mesh=None,
     device: str | torch.device = "cuda",
 ) -> Basecaller:
-    """Build a Basecaller from file paths (None checkpoint → seeded init).
+    """Build a Basecaller from file paths (None checkpoint → seeded init,
+    the JAX package's weights for ``seed``).
 
-    ``checkpoint`` is a flax-layout ``.npz`` (the JAX package's format);
+    ``checkpoint`` is a flax-layout ``.npz`` (the JAX package's format)
+    or the reference's Keras weights ``.h5`` (needs ``h5py``);
     ``rna_model`` the reference's k-mer LM JSON (None or 'None': no LM).
     """
     device = resolve_device(device)
@@ -892,11 +966,9 @@ def load_basecaller(
 
         config = get_config(config_path)
     if checkpoint is None:
-        model = build_model(config)
-        model.reset_parameters(torch.Generator().manual_seed(seed))
-        params = model.state_dict()
+        params = params_from_flax(init_params(config, seed))
     elif str(checkpoint).endswith(".h5"):
-        raise unported("Keras .h5 import", "utilities")
+        params = params_from_flax(load_keras_h5(checkpoint, config))
     else:
         params = params_from_flax(load_params_npz(checkpoint))
     options = options or BasecallOptions()

@@ -21,19 +21,34 @@ def test_entry_points_default_to_the_card_and_refuse_unported(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["in_dir", "out_dir"])
     params = build_model().state_dict()
-    for opts in (dict(assembly_mode="mean"), dict(prep_mode="strips"),
-                 dict(prep_mode="windows"), dict(beam_width=17),
-                 dict(decode_type="chunk", beam_width=17),
-                 dict(decode_type="chunk", consensus="device")):
+    # what stays unported: beams over 16 (the reference's int8
+    # backpointers) and multi-GPU
+    for opts in (dict(beam_width=17), dict(decode_type="chunk",
+                                           beam_width=17)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpipe.Basecaller(params, options=tpipe.BasecallOptions(**opts),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*device consensus"):
-        main(["in_dir", "out_dir", "--decode-type", "chunk", "--consensus",
-              "device", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-GPU"):
+        tpipe.Basecaller(params, mesh=object(), device="cpu")
+    for flag in (["--mesh-data", "2"], ["--shard-reads"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*multi-GPU"):
+            main(["in_dir", "out_dir", "--device", "cpu", *flag])
+    # the global strips/windows/'mean' paths, the fallback geometry and
+    # the device consensus are ported: these construct
+    for opts, fast in ((dict(assembly_mode="mean"), None),
+                       (dict(prep_mode="strips"), "strips"),
+                       (dict(prep_mode="windows"), None),
+                       (dict(step_size=96), None), ({}, "fullread")):
+        bc = tpipe.Basecaller(params, options=tpipe.BasecallOptions(**opts),
+                              device="cpu")
+        assert (bc.use_strips, bc.use_fullread) == (fast == "strips",
+                                                   fast == "fullread")
+    with pytest.raises(ValueError, match="requires global decode"):
+        tpipe.Basecaller(params, options=tpipe.BasecallOptions(
+            prep_mode="fullread", step_size=96), device="cpu")
     # chunk mode and streaming are ported: these construct and run
     bc = tpipe.Basecaller(params, options=tpipe.BasecallOptions(
-        decode_type="chunk"), device="cpu")
+        decode_type="chunk", consensus="device"), device="cpu")
     assert bc.use_chunk_fused and not bc.chunk_tiled
     assert bc.basecall_directory("in_dir", tmp_path, reads=[],
                                  streaming=True) == 0

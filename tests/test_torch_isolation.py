@@ -22,6 +22,8 @@ def test_import_leaves_jax_out():
         "('jax', 'jaxlib', 'flax', 'radian_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'radian_tpu_torch.lm.kmer' in sys.modules\n"
+        "assert 'radian_tpu_torch.models.keras_import' in sys.modules\n"
+        "assert 'h5py' not in sys.modules  # imported where it is used\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
