@@ -16,7 +16,8 @@ and checks them:
               parallel); ptxas registers, stack frame and spills per
               kernel instantiation
   3. kernel   no-LM beam-search kernels vs their plain PyTorch version,
-              both on the card: N=64, T up to 1,024, beams 1/2/6/8/12/16
+              both on the card: N=64, T up to 1,040 (not a multiple of the
+              32-step tile), beams 1/2/6/8/12/16
               and one case with exact-zero probabilities; labels and
               n_labels identical, scores within 1e-5 absolute
   3b. lm      the LM-fused decode kernel vs its plain version the same
@@ -92,8 +93,10 @@ and checks them:
   8b. consensus-device  chunk 'fused' with consensus='device': card
               strings == CPU strings on phase 4's reads (the card run
               with the launch counts set to 0); on phase 7's first batch
-              the host collect with the device stitch timed beside the
-              C++ stitch's (twice each, alternating)
+              the host collect with the device stitch (one padded
+              call over the batch's reads, as the pipeline runs it, and
+              one read a call) timed beside the C++ stitch's (twice
+              each, alternating); the two device stitches' strings equal
 
 Each phase prints its seconds ("[phase-time] step=...").
 
@@ -967,9 +970,14 @@ def device_consensus(dev, reads, small) -> dict:
     """Phase 8b: chunk 'fused' with ``consensus='device'``: card vs CPU
     strings on phase 4's reads (the card run with the launch counts set
     to 0 just before it); on phase 7's first batch, the host collect
-    with the device stitch timed beside the C++ stitch's."""
+    with the device stitch (one padded call, and one read a call) timed
+    beside the C++ stitch's."""
     import torch
 
+    from radian_tpu_torch.ops.beam_search import rows_to_seqs, unpack_labels2
+    from radian_tpu_torch.ops.consensus_device import (
+        assemble_fragments_device,
+    )
     from radian_tpu_torch.pipeline import BasecallOptions, load_basecaller
 
     kw = dict(decode_type="chunk", beam_width=6, bucket_quantum=4096)
@@ -1008,22 +1016,39 @@ def device_consensus(dev, reads, small) -> dict:
     packed, n_lab = bc.chunk_decode(probs, geom)
     torch.cuda.synchronize()
     rec = ("chunk", idxs, mads, packed, geom.n_dec, n_lab)
+    # the device stitch as the pipeline runs it (every read's votes in one
+    # padded call) beside the C++ stitch and, for comparison, the device
+    # stitch one read a call (the JAX package's way), fragments rendered
+    # from the same labels
+    def per_read():
+        p, n = packed.cpu().numpy(), n_lab.cpu().numpy()
+        w = geom.n_dec.cpu().numpy()
+        return [assemble_fragments_device(
+            rows_to_seqs(unpack_labels2(p[j, :w[j]], n[j, :w[j]])),
+            device=dev)[::-1] for j in range(len(idxs))]
+
     seqs, ms = {}, {}
-    for c in ("reference", "device", "reference", "device"):
+    for c in ("reference", "device", "per_read") * 2:
         res = {}
         t0 = time.perf_counter()
-        stitch[c]._collect_batch(rec, res)
+        if c == "per_read":
+            seqs[c] = per_read()
+        else:
+            stitch[c]._collect_batch(rec, res)
+            seqs[c] = [res[i] for i in idxs]
         torch.cuda.synchronize()
         ms.setdefault(c, []).append((time.perf_counter() - t0) * 1e3)
-        seqs[c] = [res[i] for i in idxs]
     agree = sum(a == b for a, b in zip(seqs["device"], seqs["reference"]))
     _line("consensus-device", bucket=bucket, reads=len(idxs),
           windows=int(geom.n_dec[:len(idxs)].sum()),
           cpp_stitch_ms=[round(x, 2) for x in ms["reference"]],
           device_stitch_ms=[round(x, 2) for x in ms["device"]],
+          device_stitch_per_read_ms=[round(x, 2) for x in ms["per_read"]],
           strings_equal_to_cpp=agree)
     if any(not x for x in seqs["device"]):
         _fail("device consensus gave an empty string on the chunk batch")
+    if seqs["per_read"] != seqs["device"]:
+        _fail("device consensus: the batched and per-read stitches differ")
     return {"launches": launches}
 
 
@@ -1097,7 +1122,9 @@ def main() -> int:
 
     # 3. kernel vs plain (random peaked matrices) ------------------------
     rng = np.random.default_rng(0)
-    n, t_max = 64, 1024  # the plain versions step 1,024 times a case
+    # T 1,040 is not a multiple of the kernels' 32-step tile, so the last,
+    # partial tile of the decode, LM decode and backtrace is held too
+    n, t_max = 64, 1040
     compared = differing = 0
     for w, zero in ((1, False), (2, False), (6, False), (8, False),
                     (12, False), (16, False), (6, True)):

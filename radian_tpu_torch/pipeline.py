@@ -74,7 +74,9 @@ from radian_tpu_torch.ops.consensus import (
     assemble_fragments,
     assemble_read_packed2,
 )
-from radian_tpu_torch.ops.consensus_device import assemble_fragments_device
+from radian_tpu_torch.ops.consensus_device import (
+    assemble_fragments_device_batch,
+)
 from radian_tpu_torch.ops.preprocess import (
     bucket_length,
     mad_normalise,
@@ -824,32 +826,31 @@ class Basecaller:
                     results[i] = seqs[j]
             return
 
-        def stitch_one(j):
+        def fragments(j):
             w = int(n_wins[j])
-            if n_lab is not None and o.consensus == "reference":
-                # 'fused': the 2-bit rows rendered and stitched in C++
-                seq = assemble_read_packed2(packed[j, :w], n_lab[j, :w])
-                return seq[::-1]
             if n_lab is None:
                 # 'windows': nibble-packed labels over each whole window
-                frags = rows_to_seqs(unpack_labels(packed[j, :w]))
-            else:
-                frags = rows_to_seqs(unpack_labels2(packed[j, :w],
-                                                    n_lab[j, :w]))
-            if o.consensus == "device":
-                seq = assemble_fragments_device(frags, device=self.device)
-            else:
-                seq = assemble_fragments(frags)
-            return seq[::-1]  # 5'→3' like the reference driver
+                return rows_to_seqs(unpack_labels(packed[j, :w]))
+            return rows_to_seqs(unpack_labels2(packed[j, :w], n_lab[j, :w]))
+
+        def stitch_one(j):
+            if n_lab is not None:
+                # 'fused': the 2-bit rows rendered and stitched in C++
+                w = int(n_wins[j])
+                return assemble_read_packed2(packed[j, :w], n_lab[j, :w])
+            return assemble_fragments(fragments(j))
 
         todo = [(j, i) for j, i in enumerate(idxs) if not bad[j]]
-        # the device stitch queues its work on the card one read at a time
-        if len(todo) > 3 and o.consensus == "reference":
+        if o.consensus == "device":
+            # every read's votes in one padded call on the card
+            seqs = assemble_fragments_device_batch(
+                [fragments(j) for j, _ in todo], device=self.device)
+        elif len(todo) > 3:
             seqs = _stitch_pool().map(stitch_one, [j for j, _ in todo])
         else:
             seqs = map(stitch_one, [j for j, _ in todo])
         for (_, i), seq in zip(todo, seqs):
-            results[i] = seq
+            results[i] = seq[::-1]  # 5'→3', as the reference's basecall.py
 
     def basecall_stream(self, reads: Iterable[Fast5Read],
                         writer: FastaWriter,
