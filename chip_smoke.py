@@ -7,8 +7,9 @@ parameters): the default global-mode no-LM basecall, global mode with
 the bench's 12-mer LM fused in (float32 and bfloat16 forwards), chunk
 mode (the reference's --decode-type chunk) and chunk_lm (the tiled,
 LM-fused chunk decode), the global strips / windows / 'mean' forwards
-and the fallback geometry, and chunk mode with the device consensus,
-and checks them:
+and the fallback geometry, chunk mode with the device consensus, and
+training (the training CLI at the default config's full width, on
+synthetic shards), and checks them:
 
   1. device   nvidia-smi name and power limit, torch's device name
   2. build    nvcc builds every csrc/*.cu kernel and g++ the csrc/*.cc
@@ -97,10 +98,34 @@ and checks them:
               call over the batch's reads, as the pipeline runs it, and
               one read a call) timed beside the C++ stitch's (twice
               each, alternating); the two device stitches' strings equal
+  9. train    a. 8 train and 2 val TFRecord shards of 512 synthetic
+              windows (1,024 samples, dwell 40 +- 8 a base, as
+              scripts/bench_train.py) written by the port, then
+              radian_tpu_torch.cli.train at the default config (2,200,581
+              parameters, batch 32, Adam 1e-4): 2 epochs of 128 steps with
+              --eval-edit-distance and --export-npz; the last epoch's loss
+              must be below 0.7x the first logged loss, the val loss and
+              edit distance finite, the checkpoints and best/ written;
+              b. a fresh Trainer restores the newest checkpoint: params and
+              optimizer state bit-equal to the trained ones, step 256,
+              resume epoch 2; e. the exported .npz basecalls phase 4's
+              reads through the decode and backtrace kernels (counts set
+              to 0 just before), strings == a CPU Basecaller's on it;
+              c. seed 0, batch 8: 3 steps on the card and 3 on the CPU
+              over the same batches, in float32 the first step's loss
+              within 1e-5 relative and its gradients within 1e-3 of each
+              leaf's largest, the 3 losses within 1e-2 (max |dparam|
+              reported), then bfloat16 reported; d. batch
+              256 in float32 and bfloat16: ms a step, windows/s, model
+              TFLOP/s (6 FLOPs a weight a sample), peak GB, and the step
+              split by CUDA events into forward / CTC / backward /
+              optimizer; the CTC loss's forward + backward timed alone
+              beside its plain recursion, their gradients within 1e-3
 
 Each phase prints its seconds ("[phase-time] step=...").
 
-Prints the nvidia-smi line, one JSON line of kernel numbers, and last
+Prints one JSON line of phase 9's numbers, the nvidia-smi line, one JSON
+line of kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script
 exits non-zero before that line.  Needs one CUDA device, nvcc and g++:
 
@@ -136,6 +161,20 @@ LM_CASES = ((6, 11, False, False, (0.5, 0.5), False),
             (6, 0, False, True, (0.0, 10.0), False),
             (15, 0, True, False, (0.0, 10.0), False),
             (15, 11, False, False, (0.5, 0.5), False))
+# phase 9c, card against CPU in float32 from the same seeded params: the
+# first step's loss and gradients (each leaf's largest entry the scale),
+# then the losses of 3 steps.  Adam's first updates are lr·sign(g) an
+# element, so an element whose gradient is within rounding of 0 moves ±lr
+# apart on the two devices: after 3 steps at lr 1e-4 the params differ by
+# up to ~3e-4 and the early, unstable losses by up to ~0.3 % (H100 80GB
+# HBM3 at 700 W: 2.5e-3), where the same parameters give 1e-7.
+FIRST_STEP_LOSS_RTOL = 1e-5
+FIRST_STEP_GRAD_RTOL = 1e-3
+CARD_VS_CPU_LOSS_RTOL = 1e-2
+# phase 9d: F.ctc_loss against the plain recursion, gradients through a
+# log-softmax at batch 256, T 1,024: entries are at most 1, but both sides
+# carry the loss (~500) in float32 (spacing 6e-5) through their exps
+CTC_GRAD_ATOL = 1e-3
 # bytes of one LM row lookup, by (packed, bf16): dense probs + entropy;
 # packed l1 (word, rank) + vals row
 ROW_BYTES = {(False, False): 20, (False, True): 10, (True, False): 28,
@@ -1052,6 +1091,275 @@ def device_consensus(dev, reads, small) -> dict:
     return {"launches": launches}
 
 
+def _train_split(trainer, batch, reps: int) -> dict:
+    """Mean ms of each part of a train step, CUDA events between them:
+    the forward, the CTC loss (weighted mean), the backward and the
+    optimizer update."""
+    import torch
+
+    from radian_tpu_torch.ops.ctc import ctc_loss
+
+    parts = ("forward", "ctc", "backward", "optimizer")
+    ms = dict.fromkeys(parts, 0.0)
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        lp = trainer.model(batch["signal"][..., None], train=True)
+        ev[1].record()
+        losses = ctc_loss(lp, batch["input_length"], batch["labels"],
+                          batch["label_length"])
+        w = batch["weight"]
+        loss = (losses * w).sum() / w.sum().clamp_min(1.0)
+        ev[2].record()
+        grads = torch.autograd.grad(loss, list(trainer.params.values()))
+        ev[3].record()
+        trainer.opt_state = trainer.tx.apply(
+            trainer.params, dict(zip(trainer.params, grads)),
+            trainer.opt_state)
+        trainer.step += 1
+        ev[4].record()
+        ev[4].synchronize()
+        for i, p in enumerate(parts):
+            ms[p] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return ms
+
+
+def train_phase(dev, small) -> dict:
+    """Phase 9: training through the port's CLI at full width (see the
+    module docstring, a-e).  Returns the numbers of the "train" line and
+    the decode kernels' launches in 9e."""
+    import tempfile
+
+    import torch
+
+    from radian_tpu_torch.cli import train as train_cli
+    from radian_tpu_torch.config import default_config
+    from radian_tpu_torch.io.tfrecord import write_shard
+    from radian_tpu_torch.models.sig2seq import param_count
+    from radian_tpu_torch.ops.ctc import ctc_loss, ctc_loss_reference
+    from radian_tpu_torch.pipeline import BasecallOptions, load_basecaller
+    from radian_tpu_torch.train.trainer import TrainConfig, Trainer
+    from radian_tpu_torch.utils.synthetic import kmer_level_table, synth_windows
+
+    out = {}
+    rng = np.random.default_rng(9)
+    levels = kmer_level_table(rng)
+    # scripts/bench_train.py's traffic: RNA002-like dwell, ~26 labels a
+    # 1,024-sample window
+    traffic = dict(window=1024, levels=levels, dwell_mean=40.0,
+                   dwell_std=8.0)
+    with tempfile.TemporaryDirectory(prefix="radian-train-") as tmp:
+        tmp = Path(tmp)
+        # 9a. shards, then the CLI: default config, batch 32, 2 epochs
+        t0 = time.perf_counter()
+        for split, n_shards in (("train", 8), ("val", 2)):
+            (tmp / "shards" / split).mkdir(parents=True)
+            for s in range(n_shards):
+                b = synth_windows(rng, 512, **traffic)
+                write_shard(tmp / "shards" / split / f"{s}.tfrecords", [
+                    {"signal": b["signal"][i],
+                     "label": b["labels"][i][: b["label_length"][i]].astype(
+                         np.float32),
+                     "signal_length": 1024,
+                     "label_length": int(b["label_length"][i])}
+                    for i in range(512)])
+        shards_s = time.perf_counter() - t0
+        ck, logs, npz = tmp / "ckpt", tmp / "logs", tmp / "trained.npz"
+        t0 = time.perf_counter()
+        trainer = train_cli.main([
+            "-s", str(tmp / "shards"), "--steps-per-epoch", "128",
+            "--n-epochs", "2", "--device", str(dev),
+            "--checkpoint-dir", str(ck), "--log-dir", str(logs),
+            "--eval-edit-distance", "--export-npz", str(npz)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        log = [json.loads(x) for x in
+               (logs / "metrics.jsonl").read_text().splitlines()]
+        first = next(x["value"] for x in log if x["tag"] == "train/loss")
+        epoch_loss = [x["value"] for x in log
+                      if x["tag"] == "train/epoch_loss"]
+        val = [x["value"] for x in log if x["tag"] == "val/loss"]
+        ed = [x["value"] for x in log if x["tag"] == "val/edit_distance"]
+        rate = [x["value"] for x in log
+                if x["tag"] == "train/windows_per_s"]
+        _line("train-cli", shards_s=f"{shards_s:.1f}", cli_s=f"{cli_s:.1f}",
+              steps=trainer.step, first_logged_loss=f"{first:.3f}",
+              epoch_loss=[round(x, 3) for x in epoch_loss],
+              val_loss=[round(x, 3) for x in val],
+              val_edit_distance=[round(x, 4) for x in ed],
+              windows_per_s=[round(x, 1) for x in rate])
+        out.update(first_logged_loss=first, epoch_loss=epoch_loss,
+                   val_loss=val, val_edit_distance=ed, cli_s=cli_s)
+        if trainer.step != 256 or len(epoch_loss) != 2:
+            _fail(f"train: {trainer.step} steps over {len(epoch_loss)} "
+                  "epochs, 256 over 2 expected")
+        if not epoch_loss[-1] < 0.7 * first:
+            _fail(f"train: last epoch loss {epoch_loss[-1]} is not below "
+                  f"0.7 x the first logged loss {first}")
+        if (len(val) != 2 or len(ed) != 2
+                or not np.isfinite(val + ed).all()):
+            _fail(f"train: val loss {val}, edit distance {ed}")
+        best = [p.name for p in (ck / "best").iterdir()]
+        if (sorted(p.name for p in ck.iterdir()) != ["0", "1", "best"]
+                or best != [str(int(np.argmin(val)))]):
+            _fail(f"train: checkpoints {sorted(ck.iterdir())}, best {best}")
+
+        # 9b. resume: a fresh Trainer restores the newest checkpoint
+        fresh = Trainer(default_config(), TrainConfig(
+            checkpoint_dir=str(ck), device=str(dev)))
+        resume = fresh.restore_checkpoint()
+        same = (all(torch.equal(fresh.params[k], v)
+                    for k, v in trainer.params.items())
+                and fresh.opt_state.count == trainer.opt_state.count
+                and all(torch.equal(fresh.opt_state.slots[s][k], v)
+                        for s, b in trainer.opt_state.slots.items()
+                        for k, v in b.items()))
+        _line("train-resume", resume_epoch=resume, step=fresh.step,
+              params_and_opt_state_bit_equal=same)
+        if not same or resume != 2 or fresh.step != 256:
+            _fail("train: the restored checkpoint is not the trained state")
+        del fresh, trainer
+
+        # 9e. basecall with the exported weights, through the kernels
+        opts = BasecallOptions(beam_width=6, read_batch=4,
+                               bucket_quantum=4096)
+        want = load_basecaller(npz, options=opts,
+                               device="cpu").basecall_signals(small)
+        bc = load_basecaller(npz, options=opts, device=dev)
+        zero_launches()
+        got = bc.basecall_signals(small)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        same = sum(a == b for a, b in zip(got, want))
+        _line("train-basecall", reads=len(small), identical_to_cpu=same,
+              lengths=[len(x) for x in got],
+              launches=json.dumps(launches, separators=(",", ":")))
+        if (not launches["beam_decode"] or not launches["beam_backtrace"]
+                or launches["beam_decode_lm"]):
+            _fail(f"train: the exported weights did not basecall through "
+                  f"the decode kernels: {launches}")
+        if same != len(small):
+            _fail("train: card strings of the trained weights differ from "
+                  "the CPU's")
+        out["basecall_launches"] = launches
+
+    # 9c. card vs CPU: seed 0, full width, batch 8, the same 3 batches
+    batches = [synth_windows(rng, 8, **traffic) for _ in range(3)]
+    for dtype in ("float32", "bfloat16"):
+        losses, grads, params, secs = {}, {}, {}, {}
+        for d in (dev, "cpu"):
+            tr = Trainer(default_config(), TrainConfig(
+                checkpoint_dir=None, device=str(d), compute_dtype=dtype))
+            t0 = time.perf_counter()
+            # the first step's gradients, from the same seeded params
+            g = torch.autograd.grad(tr.loss(tr._put_batch(batches[0])),
+                                    list(tr.params.values()))
+            grads[str(d)] = [x.cpu() for x in g]
+            losses[str(d)] = [float(tr.train_step(tr._put_batch(b)))
+                              for b in batches]
+            secs[str(d)] = time.perf_counter() - t0
+            params[str(d)] = {k: v.detach().cpu()
+                              for k, v in tr.params.items()}
+        card, cpu = (np.asarray(losses[k]) for k in (str(dev), "cpu"))
+        rel = np.abs(card - cpu) / np.abs(cpu)
+        grad_rel = max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(grads[str(dev)], grads["cpu"]))
+        dp = max(float((params[str(dev)][k] - v).abs().max())
+                 for k, v in params["cpu"].items())
+        _line("train-card-vs-cpu", dtype=dtype, steps=3, batch=8,
+              card_losses=[round(float(x), 5) for x in card],
+              cpu_losses=[round(float(x), 5) for x in cpu],
+              rel_loss_diff=[f"{x:.3e}" for x in rel],
+              first_step_grad_rel_diff=f"{grad_rel:.3e}",
+              max_abs_param_diff=f"{dp:.3e}",
+              card_s=f"{secs[str(dev)]:.1f}", cpu_s=f"{secs['cpu']:.1f}")
+        out[f"card_vs_cpu_{dtype}"] = {
+            "rel_loss_diff": rel.tolist(),
+            "first_step_grad_rel_diff": grad_rel,
+            "max_abs_param_diff": dp, "cpu_s": secs["cpu"]}
+        if dtype == "float32" and not (
+                rel[0] <= FIRST_STEP_LOSS_RTOL
+                and grad_rel <= FIRST_STEP_GRAD_RTOL
+                and rel.max() <= CARD_VS_CPU_LOSS_RTOL):
+            _fail(f"train: card and CPU differ (float32): losses {rel} "
+                  f"relative (first step > {FIRST_STEP_LOSS_RTOL} or any > "
+                  f"{CARD_VS_CPU_LOSS_RTOL}), first-step gradients "
+                  f"{grad_rel} of each leaf's largest (> "
+                  f"{FIRST_STEP_GRAD_RTOL})")
+
+    # 9d. throughput at batch 256 (scripts/bench_train.py's middle size)
+    b = synth_windows(rng, 256, **traffic)
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.empty_cache()
+        tr = Trainer(default_config(), TrainConfig(
+            checkpoint_dir=None, device=str(dev), compute_dtype=dtype))
+        batch = tr._put_batch(b)
+        for _ in range(3):  # cuDNN plans, the allocator
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        n_steps = 10
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            loss = tr.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        split = _train_split(tr, batch, 3)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        # 2 FLOPs a weight a sample forward, twice that backward
+        tflops = 6 * param_count(tr.model) * 256 * 1024 / step_ms / 1e9
+        _line("train-throughput", dtype=dtype, batch=256,
+              ms_per_step=f"{step_ms:.2f}",
+              windows_per_s=f"{256e3 / step_ms:.1f}",
+              model_tflops=f"{tflops:.2f}", peak_mem_gb=f"{peak_gb:.2f}",
+              loss=f"{float(loss):.3f}",
+              **{f"{k}_ms": f"{v:.2f}" for k, v in split.items()})
+        out[f"throughput_{dtype}"] = {
+            "ms_per_step": step_ms, "windows_per_s": 256e3 / step_ms,
+            "model_tflops": tflops, "peak_gb": peak_gb, "split_ms": split}
+
+    # the CTC loss alone, forward and backward, on this batch's
+    # log-probabilities: F.ctc_loss beside the plain recursion
+    with torch.no_grad():
+        lp = tr.model(batch["signal"][..., None]).detach()
+    args = (batch["input_length"], batch["labels"], batch["label_length"])
+
+    def ctc_step(fn):
+        x = lp.clone().requires_grad_()
+        fn(x, *args).sum().backward()
+
+    ctc_ms = cuda_ms(lambda: ctc_step(ctc_loss), 5)
+    t0 = time.perf_counter()
+    ctc_step(ctc_loss_reference)
+    torch.cuda.synchronize()
+    ctc_plain_ms = (time.perf_counter() - t0) * 1e3
+    # F.ctc_loss's backward is the gradient with respect to the logits of
+    # a log-softmax: compare the two through one
+    grads = []
+    for fn in (ctc_loss, ctc_loss_reference):
+        x = lp.clone().requires_grad_()
+        fn(torch.log_softmax(x, -1), *args).sum().backward()
+        grads.append(x.grad)
+    ctc_err = float((grads[0] - grads[1]).abs().max())
+    # bound: log-probs read and their gradient written; the alpha and beta
+    # recursions over each row's 2U+1 states (~12 operations a state-step
+    # each) and ~5 a (step, class) for the gradient
+    n, t, c = lp.shape
+    states = int((2 * batch["label_length"].long() + 1).sum())
+    ctc_bound, ctc_by = bound(2 * n * t * c * 4,
+                              2 * 12 * states * t + 5 * n * t * c)
+    _line("train-ctc", batch=n, T=t, ms=f"{ctc_ms:.3f}",
+          plain_ms=f"{ctc_plain_ms:.1f}", bound_ms=f"{ctc_bound:.4f}",
+          bound_by=ctc_by, max_abs_grad_err=f"{ctc_err:.3e}")
+    if not ctc_err <= CTC_GRAD_ATOL:
+        _fail(f"train: F.ctc_loss's gradient differs from the plain "
+              f"recursion's by {ctc_err}")
+    out["ctc"] = {"ms": ctc_ms, "plain_ms": ctc_plain_ms,
+                  "bound_ms": ctc_bound, "bound_by": ctc_by,
+                  "library_ms": ctc_ms, "max_abs_grad_err": ctc_err}
+    return out
+
+
 def synth_signals(rng, lengths, levels):
     from radian_tpu_torch.utils.synthetic import synth_read
 
@@ -1317,19 +1625,25 @@ def main() -> int:
     # 8b. chunk mode with the device consensus ---------------------------
     device_consensus(dev, reads, small)
     phase_done("8b")
+
+    # 9. training: the CLI, resume, card vs CPU, throughput, basecall ------
+    train = train_phase(dev, small)
+    phase_done("9")
     kernels = [
         {"name": "beam_decode", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",
          "replaces": "radian_tpu/ops/beam_pallas.py:369",
          "launches": launches["beam_decode"], "max_abs_err": dec_err,
          "ms": dec_ms, "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
-         "bound_by": dec_by, "library_ms": None, "chunk": ck["decode"]},
+         "bound_by": dec_by, "library_ms": None, "chunk": ck["decode"],
+         "train_launches": train["basecall_launches"]["beam_decode"]},
         {"name": "beam_backtrace", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",
          "replaces": "radian_tpu/ops/beam_search.py:420",
          "launches": launches["beam_backtrace"], "max_abs_err": 0.0,
          "ms": bt_ms, "plain_ms": bt_plain_ms, "bound_ms": bt_bound,
-         "bound_by": bt_by, "library_ms": None, "chunk": ck["backtrace"]},
+         "bound_by": bt_by, "library_ms": None, "chunk": ck["backtrace"],
+         "train_launches": train["basecall_launches"]["beam_backtrace"]},
         {"name": "beam_decode_lm", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search_lm.cu",
          "replaces": "radian_tpu/ops/beam_search.py:176",
@@ -1338,9 +1652,11 @@ def main() -> int:
          "ms": lmk["dense", "f32"]["ms"], "plain_ms": lmk["plain_ms"],
          "bound_ms": lmk["dense", "f32"]["bound_ms"],
          "bound_by": lmk["dense", "f32"]["bound_by"], "library_ms": None,
-         "chunk": ck["decode_lm"]},
+         "chunk": ck["decode_lm"],
+         "train_launches": train["basecall_launches"]["beam_decode_lm"]},
     ]
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    print(json.dumps({"train": train}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,18 +25,30 @@ Weights come from a flax-layout ``.npz``, the reference's Keras ``.h5``
 package's ``init_params`` for that seed, rebuilt in numpy
 (``models/init.py``).
 
+Training (``python -m radian_tpu_torch.cli.train -s SHARDS --device
+cuda``): the JAX ``Trainer`` on one device, from TFRecord shards, with
+the CTC loss (``F.ctc_loss``), optax's update rules written out in
+torch, checkpoints that keep the optimizer state, and ``--export-npz``
+for weights ``load_basecaller`` reads.
+
 It imports ``torch`` and never ``jax`` or ``radian_tpu``.
 
 Subpackages
 -----------
 - ``radian_tpu_torch.ops``     preprocessing, windows and strips, matrix
                                assembly, beam search (plain + CUDA), the
-                               chunk consensus (host C++ and device)
+                               chunk consensus (host C++ and device),
+                               the CTC loss, greedy decode
 - ``radian_tpu_torch.models``  the sig2seq TCN network, the flax weight
                                bridge, Keras .h5 import, the seeded init
 - ``radian_tpu_torch.lm``      the k-mer LM tables (dense and packed)
-- ``radian_tpu_torch.io``      host I/O: fast5, fasta
-- ``radian_tpu_torch.cli``     basecall command line
+- ``radian_tpu_torch.train``   the CTC trainer, the optimizers, the
+                               shard dataset
+- ``radian_tpu_torch.io``      host I/O: fast5, fasta, TFRecord shards
+                               (``csrc/tfrecord.cc``, built with ``g++``)
+- ``radian_tpu_torch.utils``   synthetic reads and training windows,
+                               the TensorBoard event writer
+- ``radian_tpu_torch.cli``     basecall and train command lines
 """
 
 __version__ = "0.1.0"

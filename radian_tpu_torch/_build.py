@@ -2,11 +2,11 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, compiled
 by ``nvcc`` for Hopper (``sm_90a``) with a plain C interface; the host
-C++ ``csrc/<name>.cc`` (the chunk-mode stitcher) is compiled the same
-way by ``g++``.  The hash is of the source, the flags and, for CUDA, the
-shared ``csrc/*.cuh`` headers, so an edited source never loads a stale
-library.  The build runs at first use, never at import; a failed build
-or load raises.
+C++ ``csrc/<name>.cc`` (the chunk-mode stitcher, the TFRecord codec) is
+compiled the same way by ``g++``.  The hash is of the source, the flags
+and, for CUDA, the shared ``csrc/*.cuh`` headers, so an edited source
+never loads a stale library.  The build runs at first use, never at
+import; a failed build or load raises.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_long
+_LL = ctypes.c_longlong
 # exported C functions: name -> (argtypes, restype)
 _SIGNATURES = {
     "beam_search": {
@@ -50,10 +51,18 @@ _SIGNATURES = {
         "AssembleFragments": ([_P, _P, _L, _P], _L),
         "AssembleRead2": ([_P, _P, _L, _L, _P], _L),
     },
+    "tfrecord": {
+        "ParseShard": ([ctypes.c_char_p, _L, _L, _L, _L,
+                        ctypes.POINTER(_F), ctypes.POINTER(_F),
+                        ctypes.POINTER(_LL), ctypes.POINTER(_LL), _I], _L),
+        "WriteExample": ([ctypes.POINTER(_F), _L, ctypes.POINTER(_F), _L,
+                          _LL, _LL, ctypes.POINTER(ctypes.c_ubyte), _L], _L),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-_LOAD_LOCK = threading.Lock()  # the chunk stitch loads from a thread pool
+# the chunk stitch and the shard reader load from threads
+_LOAD_LOCK = threading.Lock()
 
 
 def _compiler(suffix: str) -> str:

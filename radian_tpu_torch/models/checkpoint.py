@@ -5,6 +5,9 @@ are flax paths (``tcn/block0/conv0/Conv_0/kernel``, ``dense_relu/bias``,
 ...).  :func:`params_from_flax` maps those arrays onto this package's
 ``state_dict``: conv kernels ``[K, Cin, Cout]`` → ``[Cout, Cin, K]``,
 dense kernels ``[in, out]`` → ``[out, in]``, biases unchanged.
+:func:`params_to_flax` is its inverse, and :func:`save_params_npz` writes
+the npz the JAX package's ``load_params_npz`` (and this package's
+``load_basecaller``) reads.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import torch
 _CONV = re.compile(r"tcn/block(\d+)/(conv0|conv1)/Conv_0/(kernel|bias)")
 _SHORTCUT = re.compile(r"tcn/block(\d+)/shortcut/(kernel|bias)")
 _DENSE = re.compile(r"(dense_relu|dense_out)/(kernel|bias)")
+_TORCH = re.compile(r"tcn\.blocks\.(\d+)\.(conv0|conv1|shortcut)\.(weight|bias)"
+                    r"|(dense_relu|dense_out)\.(weight|bias)")
 
 
 def load_params_npz(path: str | Path) -> dict[str, np.ndarray]:
@@ -76,3 +81,40 @@ def params_from_flax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     if missing or not blocks:
         raise KeyError(f"flax parameters missing for {missing or 'tcn'}")
     return sd
+
+
+def flax_name(name: str) -> str:
+    """The flax path of a ``SigToSeq`` ``state_dict`` key."""
+    m = _TORCH.fullmatch(name)
+    if m is None:
+        raise KeyError(f"unknown parameter {name!r}")
+    if m[1] is not None:
+        leaf = "kernel" if m[3] == "weight" else "bias"
+        conv = "shortcut" if m[2] == "shortcut" else f"{m[2]}/Conv_0"
+        return f"tcn/block{m[1]}/{conv}/{leaf}"
+    return f"{m[4]}/{'kernel' if m[5] == 'weight' else 'bias'}"
+
+
+def tensors_to_flax(named) -> dict[str, np.ndarray]:
+    """``{state_dict key: tensor}`` (parameters, or anything shaped like
+    them, such as optimizer moments) → flax-layout ``{flax path: float32
+    array}``: conv kernels ``[Cout, Cin, K]`` → ``[K, Cin, Cout]``, dense
+    kernels transposed, biases unchanged."""
+    out = {}
+    for name, t in named.items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if a.ndim > 1:
+            a = a.transpose(2, 1, 0) if a.ndim == 3 else a.T
+        out[flax_name(name)] = np.ascontiguousarray(a)
+    return out
+
+
+def params_to_flax(model: torch.nn.Module) -> dict[str, np.ndarray]:
+    """A model's parameters as the flat flax-layout dict
+    :func:`params_from_flax` reads."""
+    return tensors_to_flax(dict(model.named_parameters()))
+
+
+def save_params_npz(model: torch.nn.Module, path: str | Path) -> None:
+    """The JAX package's npz checkpoint: ``"/"``-joined flax paths."""
+    np.savez(path, **params_to_flax(model))

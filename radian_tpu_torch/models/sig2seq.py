@@ -59,8 +59,12 @@ class SigToSeq(nn.Module):
         jax.random.PRNGKey(seed))``, the same numbers (``init.py``)."""
         self.load_state_dict(params_from_flax(init_params(self.config, seed)))
 
-    def forward(self, x, *, probs: bool = False):
-        """``[N, T, 1]`` signal → ``[N, T, softmax_units]`` f32."""
+    def forward(self, x, *, train: bool = False, probs: bool = False):
+        """``[N, T, 1]`` signal → ``[N, T, softmax_units]`` f32.
+
+        ``train`` is the flax module's flag: it changes nothing but
+        dropout, which is a no-op with ``train=False`` and refused with
+        ``train=True`` (``tcn.py``)."""
         if x.is_cuda:
             # cuDNN runs f32 convolutions in TF32 by default, which keeps
             # ~3 decimal digits: the probabilities, and so the decoded
@@ -68,7 +72,7 @@ class SigToSeq(nn.Module):
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         dt = self.compute_dtype
-        h = self.tcn(x.to(dt).transpose(1, 2))
+        h = self.tcn(x.to(dt).transpose(1, 2), train)
         h = h.transpose(-1, -2) if h.dim() == 3 else h  # [N, T, C]
         h = F.relu(_dense(h, self.dense_relu, dt))
         logits = _dense(h, self.dense_out, dt).float()

@@ -55,8 +55,10 @@ class CausalConv1D(nn.Module):
 
 class ResidualBlock(nn.Module):
     def __init__(self, in_channels: int, filters: int, kernel_size: int,
-                 dilation: int, padding: str = "causal"):
+                 dilation: int, padding: str = "causal",
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.conv0 = CausalConv1D(in_channels, filters, kernel_size,
                                   dilation, padding)
         self.conv1 = CausalConv1D(filters, filters, kernel_size, dilation,
@@ -65,7 +67,16 @@ class ResidualBlock(nn.Module):
         self.shortcut = (CausalConv1D(in_channels, filters, 1)
                          if in_channels != filters else None)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if train and self.dropout_rate > 0.0:
+            # the flax block's nn.Dropout needs a 'dropout' rng when
+            # train=True, which the JAX Trainer never passes: no reference
+            # trains with dropout, so the port does not either
+            raise NotImplementedError(
+                f"dropout_rate={self.dropout_rate} with train=True: the JAX "
+                "package cannot train with dropout (its train step passes "
+                "no 'dropout' rng), so the port does not add it")
+        # with train=False each nn.Dropout is deterministic: a no-op
         branch = F.relu(self.conv1(F.relu(self.conv0(x))))
         inputs = x if self.shortcut is None else self.shortcut(x)
         out = F.relu(inputs.float() + branch.float()).to(x.dtype)
@@ -80,10 +91,11 @@ class TCN(nn.Module):
                  dropout_rate: float = 0.0, return_sequences: bool = True,
                  use_batch_norm: bool = False, in_channels: int = 1):
         super().__init__()
-        if dropout_rate > 0.0 or use_batch_norm:
+        if use_batch_norm:
             raise NotImplementedError(
-                "dropout and batch norm are training options: ROADMAP "
-                "Queue 1 'Training'")
+                "use_batch_norm=True: the JAX package cannot apply it "
+                "either (init_params keeps only 'params', so every apply "
+                "lacks the 'batch_stats' collection)")
         self.kernel_size = kernel_size
         self.nb_stacks = nb_stacks
         self.dilations = tuple(dilations)
@@ -94,15 +106,15 @@ class TCN(nn.Module):
         for _ in range(nb_stacks):
             for d in self.dilations:
                 blocks.append(ResidualBlock(c, nb_filters, kernel_size, d,
-                                            padding))
+                                            padding, dropout_rate))
                 c = nb_filters
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         """``[N, C_in, T]`` → ``[N, nb_filters, T]`` (or ``[N, nb_filters]``)."""
         skips = []
         for block in self.blocks:
-            x, branch = block(x)
+            x, branch = block(x, train)
             skips.append(branch)
         if self.use_skip_connections:
             x = sum(s.float() for s in skips).to(x.dtype)

@@ -1,0 +1,442 @@
+"""CTC training on one device (counterpart of radian_tpu/train/trainer.py).
+
+The JAX ``Trainer`` step, in torch: the seeded init of the JAX package
+(``models/init.py``, bit for bit), the CTC loss weighted by real rows
+(``ops/ctc.py``), optax's update rules (``train/optimizers.py``), the
+per-step loop and the preloaded pool (``preload_batches``: uploaded once,
+each step indexes it on the device), checkpoints that keep the optimizer
+state and a best-on-val copy, and scalar logging to ``metrics.jsonl``
+and TensorBoard event files with the JAX package's tags and steps.
+
+``compute_dtype='bfloat16'`` runs the convolutions and the head in
+bfloat16; parameters, optimizer state, residual sums, the softmax and
+the loss stay float32, as in the JAX package.  In float32 on the card,
+TF32 stays off (``models/sig2seq.py``).
+
+Three deliberate deviations from the JAX ``Trainer``:
+
+- ``evaluate_scan`` weights each batch's loss by its real rows, as
+  ``evaluate`` does (the JAX one takes the unweighted mean of batch
+  losses, so a short final batch counts as a full one);
+- the edit-distance forward is the model itself (the JAX one re-jits a
+  new lambda on every call);
+- ``fit`` materialises the val batches only where ``epoch_scan`` or
+  ``eval_edit_distance`` needs them (the JAX one always lists them).
+
+The mesh options (``mesh_data``/``mesh_model`` above 1) are multi-GPU
+training, not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import time
+from pathlib import Path
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from radian_tpu_torch.config import DotDict, default_config
+from radian_tpu_torch.models.sig2seq import build_model
+from radian_tpu_torch.ops.ctc import ctc_loss
+from radian_tpu_torch.ops.greedy import batch_mean_edit_distance
+from radian_tpu_torch.pipeline import resolve_device, unported
+from radian_tpu_torch.train.optimizers import OptState, build_optimizer
+from radian_tpu_torch.utils.tensorboard import EventWriter
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_STATE_FILE = "state.pt"
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    steps_per_epoch: int | None = None  # None: one pass over train data
+    checkpoint_dir: str | None = "checkpoints"
+    log_dir: str | None = None
+    seed: int = 0
+    keep_checkpoints: int = 5
+    blank_id: int = 4
+    mesh_data: int | None = None
+    mesh_model: int = 1
+    log_every: int = 50
+    # 'bfloat16': conv/dense math in bfloat16; parameters, optimizer
+    # state, residual sums, softmax and the CTC loss stay float32
+    compute_dtype: str = "float32"
+    device: str = "cuda"
+
+
+class Trainer:
+    def __init__(self, config: DotDict | None = None,
+                 train_config: TrainConfig | None = None):
+        # a copy: update_learning_rate rewrites the optimizer config
+        self.config = (config if config is not None
+                       else default_config()).copy()
+        self.tcfg = train_config or TrainConfig()
+        if self.tcfg.mesh_data not in (None, 1) or self.tcfg.mesh_model != 1:
+            raise unported("mesh_data/mesh_model above 1",
+                           "item 9, multi-GPU")
+        if self.config.model.tcn.dropout_rate > 0.0:
+            raise NotImplementedError(
+                f"dropout_rate={self.config.model.tcn.dropout_rate}: the "
+                "JAX Trainer cannot train with dropout (its train step "
+                "passes no 'dropout' rng), so the port does not either; "
+                "the model infers with it (a no-op at train=False)")
+        self.device = resolve_device(self.tcfg.device)
+        self.model = build_model(
+            self.config, compute_dtype=_DTYPES[self.tcfg.compute_dtype])
+        self.model.reset_parameters(self.tcfg.seed)
+        self.model.to(self.device)
+        self.params = dict(self.model.named_parameters())
+        self.tx = build_optimizer(self.config.train.opt)
+        self.opt_state = self.tx.init(self.params)
+        self.step = 0
+
+        self.best_val_loss = float("inf")
+        self.best_epoch: int | None = None
+        self._ckpt_dir = self._best_dir = None
+        if self.tcfg.checkpoint_dir:
+            self._ckpt_dir = Path(self.tcfg.checkpoint_dir).absolute()
+            # best-on-val-loss checkpoint (reference ModelCheckpoint
+            # monitor='val_loss' save_best_only, train.py:72-78), in its
+            # own directory so the keep-N rotation never deletes it
+            self._best_dir = self._ckpt_dir / "best"
+        self._jsonl = None
+        self._writer = None
+        if self.tcfg.log_dir:
+            Path(self.tcfg.log_dir).mkdir(parents=True, exist_ok=True)
+            self._jsonl = open(Path(self.tcfg.log_dir) / "metrics.jsonl",
+                               "a")
+            self._writer = EventWriter(self.tcfg.log_dir)
+
+    def close(self) -> None:
+        """Close the log files."""
+        if self._jsonl is not None:
+            self._jsonl.close()
+            self._writer.close()
+            self._jsonl = self._writer = None
+
+    # -- the step ----------------------------------------------------------
+
+    def loss(self, batch: dict, train: bool = True) -> torch.Tensor:
+        """Mean CTC loss over the batch's real rows (``weight`` 1; filler
+        rows weigh 0)."""
+        log_probs = self.model(batch["signal"][..., None], train=train)
+        losses = ctc_loss(log_probs, batch["input_length"], batch["labels"],
+                          batch["label_length"], blank_id=self.tcfg.blank_id)
+        w = batch["weight"]
+        return (losses * w).sum() / w.sum().clamp_min(1.0)
+
+    def train_step(self, batch: dict) -> torch.Tensor:
+        """One update on a device batch; returns its loss (on the device)."""
+        loss = self.loss(batch)
+        grads = torch.autograd.grad(loss, list(self.params.values()))
+        self.opt_state = self.tx.apply(
+            self.params, dict(zip(self.params, grads)), self.opt_state)
+        self.step += 1
+        return loss.detach()
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict) -> torch.Tensor:
+        return self.loss(batch)
+
+    # -- checkpointing ------------------------------------------------------
+
+    def _payload(self, epoch: int, val_loss: float | None) -> dict:
+        state = self.opt_state.state_dict()
+        return {
+            "params": {k: v.detach().cpu() for k, v in self.params.items()},
+            "opt_state": {"count": state["count"], "slots": {
+                s: {k: v.cpu() for k, v in b.items()}
+                for s, b in state["slots"].items()}},
+            "step": self.step,
+            "epoch": epoch,
+            "val_loss": float("nan") if val_loss is None else float(val_loss),
+        }
+
+    @staticmethod
+    def _epochs(root: Path) -> list[int]:
+        if not root.is_dir():
+            return []
+        return sorted(int(p.name) for p in root.iterdir()
+                      if p.name.isdigit() and (p / _STATE_FILE).exists())
+
+    @staticmethod
+    def _write(root: Path, epoch: int, payload: dict, keep: int) -> None:
+        """``root/<epoch>/state.pt``, written whole or not at all; then only
+        the newest ``keep`` epochs stay."""
+        d = root / str(epoch)
+        d.mkdir(parents=True, exist_ok=True)
+        tmp = d / f"{_STATE_FILE}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, d / _STATE_FILE)
+        for old in Trainer._epochs(root)[:-keep]:
+            shutil.rmtree(root / str(old))
+
+    def save_checkpoint(self, epoch: int,
+                        val_loss: float | None = None) -> None:
+        """Save the epoch checkpoint; when ``val_loss`` improves on the
+        best seen so far, also replace the best-on-val checkpoint."""
+        if self._ckpt_dir is None:
+            return
+        payload = self._payload(epoch, val_loss)
+        self._write(self._ckpt_dir, epoch, payload,
+                    self.tcfg.keep_checkpoints)
+        if val_loss is not None and float(val_loss) < self.best_val_loss:
+            self.best_val_loss = float(val_loss)
+            self.best_epoch = epoch
+            self._write(self._best_dir, epoch, payload, 1)
+
+    def _restore_from(self, root: Path | None, epoch: int | None) -> int:
+        if root is None:
+            return 0
+        if epoch is None:
+            epochs = self._epochs(root)
+            if not epochs:
+                return 0
+            epoch = epochs[-1]
+        payload = torch.load(root / str(epoch) / _STATE_FILE,
+                             map_location=self.device, weights_only=True)
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(payload["params"][k])
+        self.opt_state = OptState.from_state_dict(payload["opt_state"],
+                                                  self.device)
+        self.step = int(payload["step"])
+        return int(payload["epoch"]) + 1
+
+    def restore_checkpoint(self, epoch: int | None = None) -> int:
+        """Restore params *and* optimizer state (the newest epoch unless
+        ``epoch`` is given); returns the epoch to resume from (0 when
+        there is no checkpoint)."""
+        return self._restore_from(self._ckpt_dir, epoch)
+
+    def restore_best_checkpoint(self) -> int:
+        """Restore the best-on-val-loss checkpoint; returns the epoch
+        after the one restored (0 if no best checkpoint exists)."""
+        return self._restore_from(self._best_dir, None)
+
+    def update_learning_rate(self, new_rate: float) -> None:
+        """Mid-training rate override that keeps the optimizer state (the
+        reference's ``update_learning_rate``, radian/model.py:155-158):
+        the rule is rebuilt with the new rate and continues from the same
+        moments (for cc_opt the new rate is its ``init_rate``)."""
+        c = self.config.train.opt
+        kind = c.get("type", "adam")
+        if kind == "cc_opt":
+            c.cc_opt.init_rate = float(new_rate)
+        else:
+            c[kind].lr = float(new_rate)
+        self.tx = build_optimizer(c)
+
+    # -- logging ------------------------------------------------------------
+
+    def _log(self, tag: str, value: float, step: int) -> None:
+        if self._jsonl is not None:
+            self._jsonl.write(
+                json.dumps({"tag": tag, "value": float(value), "step": step,
+                            "time": time.time()}) + "\n"
+            )
+            self._jsonl.flush()
+            self._writer.scalar(tag, float(value), step)
+
+    # -- batches ------------------------------------------------------------
+
+    @staticmethod
+    def _host_batch(batch: dict) -> dict:
+        """The host batch with its ``weight``: 1 a row (one device, so no
+        filler rows here)."""
+        out = {k: np.asarray(v) for k, v in batch.items()}
+        out["weight"] = np.ones(out["signal"].shape[0], np.float32)
+        return out
+
+    def _put_batch(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in self._host_batch(batch).items()}
+
+    # -- device-resident pool -----------------------------------------------
+
+    def preload_batches(self, batches: list[dict]) -> dict:
+        """Stack equal-width host batches into device tensors ``{k: [S,
+        rows, ...]}``, uploaded once; each step then indexes the pool on
+        the device, with no host copy.  A short batch is padded to the
+        pool's row count with zero-weight filler rows."""
+        proc = [self._host_batch(b) for b in batches]
+        rows = max(p["signal"].shape[0] for p in proc)
+        for p in proc:
+            pad = rows - p["signal"].shape[0]
+            if pad:
+                for k, v in p.items():
+                    filler = (np.zeros((pad,) + v.shape[1:], v.dtype)
+                              if k == "weight"
+                              else np.repeat(v[:1], pad, axis=0))
+                    p[k] = np.concatenate([v, filler], axis=0)
+        return {k: torch.from_numpy(np.stack([p[k] for p in proc])
+                                    ).to(self.device)
+                for k in proc[0]}
+
+    def train_epoch_scan(self, stacked: dict, epoch: int, steps: int,
+                         start: int = 0) -> float:
+        """``steps`` train steps over the pool, the batch of step ``s``
+        being ``stacked[(start + s) % S]``; the losses come to the host
+        once, at the end."""
+        s_total = stacked["signal"].shape[0]
+        t0 = time.time()
+        losses = [self.train_step({k: v[(start + s) % s_total]
+                                   for k, v in stacked.items()})
+                  for s in range(steps)]
+        losses = torch.stack(losses).cpu().numpy()
+        for i in range(0, len(losses), self.tcfg.log_every):
+            chunk = losses[i : i + self.tcfg.log_every]
+            self._log("train/loss", float(chunk.mean()),
+                      self.step - len(losses) + i + len(chunk))
+        n_windows = steps * stacked["signal"].shape[1]
+        self._log("train/windows_per_s",
+                  n_windows / max(time.time() - t0, 1e-9), self.step)
+        mean = float(losses.mean())
+        self._log("train/epoch_loss", mean, epoch)
+        return mean
+
+    def evaluate_scan(self, stacked: dict, epoch: int | None = None,
+                      tag: str = "val/loss") -> float:
+        """Val loss over the pool, each batch weighted by its real rows."""
+        real = stacked["weight"].sum(1)
+        losses = torch.stack([self.eval_step({k: v[i]
+                                              for k, v in stacked.items()})
+                              for i in range(real.shape[0])])
+        mean = float((losses * real).sum() / real.sum())
+        if epoch is not None:
+            self._log(tag, mean, epoch)
+        return mean
+
+    # -- loops --------------------------------------------------------------
+
+    def train_epoch(self, dataset: Iterable[dict], epoch: int) -> float:
+        losses = []
+        t0 = time.time()
+        n_windows = 0
+        for i, batch in enumerate(dataset):
+            if (self.tcfg.steps_per_epoch is not None
+                    and i >= self.tcfg.steps_per_epoch):
+                break
+            n_windows += batch["signal"].shape[0]
+            losses.append(self.train_step(self._put_batch(batch)))
+            if (i + 1) % self.tcfg.log_every == 0:
+                recent = torch.stack(losses[-self.tcfg.log_every:])
+                self._log("train/loss", float(recent.mean()), self.step)
+                self._log("train/windows_per_s",
+                          n_windows / (time.time() - t0), self.step)
+        mean = float(torch.stack(losses).mean()) if losses else float("nan")
+        self._log("train/epoch_loss", mean, epoch)
+        return mean
+
+    @torch.no_grad()
+    def edit_distance_eval(self, dataset: Iterable[dict],
+                           epoch: int | None = None,
+                           tag: str = "val/edit_distance") -> float:
+        """Greedy-decode edit distance on a dataset, the working version
+        of the reference's no-op EditDistanceCallback (train.py:31-46)."""
+        dists, weights = [], []
+        for batch in dataset:
+            signal = torch.from_numpy(np.asarray(batch["signal"]))
+            lp = self.model(signal.to(self.device)[..., None])
+            dists.append(batch_mean_edit_distance(
+                lp, batch["labels"], batch["label_length"],
+                batch.get("input_length")))
+            weights.append(batch["signal"].shape[0])
+        mean = (float(np.average(dists, weights=weights)) if dists
+                else float("nan"))
+        if epoch is not None:
+            self._log(tag, mean, epoch)
+        return mean
+
+    def _evaluate(self, dataset: Iterable[dict]) -> tuple[float, int]:
+        losses, weights = [], []
+        for batch in dataset:
+            losses.append(float(self.eval_step(self._put_batch(batch))))
+            weights.append(batch["signal"].shape[0])
+        if not losses:
+            return float("nan"), 0
+        return float(np.average(losses, weights=weights)), len(losses)
+
+    def evaluate(self, dataset: Iterable[dict], epoch: int | None = None,
+                 tag: str = "val/loss") -> float:
+        mean, _ = self._evaluate(dataset)
+        if epoch is not None:
+            self._log(tag, mean, epoch)
+        return mean
+
+    def fit(
+        self,
+        train_data_factory,
+        val_data_factory=None,
+        n_epochs: int | None = None,
+        initial_epoch: int = 0,
+        val_freq: int | None = None,
+        epoch_scan: bool = False,
+        eval_edit_distance: bool = False,
+    ) -> dict:
+        """Run the training loop (reference fit loop, train.py:82-90).
+
+        ``*_factory`` are zero-arg callables returning fresh iterables.
+        ``epoch_scan=True`` uploads the whole train (and val) pool once
+        (:meth:`preload_batches`) and runs each epoch over it on the
+        device; with ``steps_per_epoch`` set, epochs cycle through the
+        pool.  ``eval_edit_distance=True`` adds the greedy-decode edit
+        distance on the val set at each val epoch.  Each epoch ends with
+        a checkpoint.
+        """
+        n_epochs = n_epochs or self.config.train.n_epochs
+        val_freq = val_freq or self.config.train.val_freq
+        history = {"train_loss": [], "val_loss": [],
+                   "val_edit_distance": []}
+
+        val_batches = None
+        if val_data_factory is not None and (epoch_scan
+                                             or eval_edit_distance):
+            val_batches = list(val_data_factory())
+
+        if epoch_scan:
+            train_batches = list(train_data_factory())
+            stacked = self.preload_batches(train_batches)
+            pool = len(train_batches)
+            steps = self.tcfg.steps_per_epoch or pool
+            val_stacked = (self.preload_batches(val_batches)
+                           if val_batches else None)
+        else:
+            train_iter = iter(train_data_factory())
+
+        for epoch in range(initial_epoch, n_epochs):
+            if epoch_scan:
+                start = (((epoch - initial_epoch) * steps) % pool
+                         if self.tcfg.steps_per_epoch is not None else 0)
+                tl = self.train_epoch_scan(stacked, epoch, steps,
+                                           start=start)
+            else:
+                source = (train_iter
+                          if self.tcfg.steps_per_epoch is not None
+                          else train_data_factory())
+                tl = self.train_epoch(source, epoch)
+            history["train_loss"].append(tl)
+            vl = None
+            if val_data_factory is not None and (epoch + 1) % val_freq == 0:
+                if epoch_scan:
+                    if val_stacked is not None:
+                        vl = self.evaluate_scan(val_stacked, epoch)
+                else:
+                    vl, n = self._evaluate(val_batches if val_batches
+                                           is not None else val_data_factory())
+                    if n:
+                        self._log("val/loss", vl, epoch)
+                    else:
+                        vl = None  # an empty val set, as the JAX fit skips
+                if vl is not None:
+                    history["val_loss"].append(vl)
+                    if eval_edit_distance:
+                        ed = self.edit_distance_eval(val_batches, epoch)
+                        history["val_edit_distance"].append(ed)
+            self.save_checkpoint(epoch, val_loss=vl)
+        return history

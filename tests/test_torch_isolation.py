@@ -19,9 +19,13 @@ def test_import_leaves_jax_out():
         "'radian_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'radian_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'radian_tpu'))\n"
         "assert not bad, bad\n"
         "assert 'radian_tpu_torch.lm.kmer' in sys.modules\n"
+        "for m in ('train.trainer', 'train.data', 'train.optimizers', "
+        "'cli.train', 'ops.ctc', 'ops.greedy', 'io.tfrecord', "
+        "'utils.tensorboard'):\n"
+        "    assert 'radian_tpu_torch.' + m in sys.modules, m\n"
         "assert 'radian_tpu_torch.models.keras_import' in sys.modules\n"
         "assert 'h5py' not in sys.modules  # imported where it is used\n"
         "print('ok')\n"
@@ -45,19 +49,23 @@ def test_no_forbidden_imports():
     tests/test_train.py (see tests/torch_one_cpu.py)."""
     from radian_tpu_torch import _build
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|radian_tpu)\b",
-                     re.M)
+    pat = re.compile(r"^\s*(import|from)\s+"
+                     r"(jax|jaxlib|flax|optax|orbax|radian_tpu)\b", re.M)
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert PKG / "lm" / "kmer.py" in files
+    for f in ("lm/kmer.py", "train/trainer.py", "train/data.py",
+              "train/optimizers.py", "cli/train.py", "ops/ctc.py",
+              "ops/greedy.py", "io/tfrecord.py", "utils/tensorboard.py"):
+        assert PKG / f in files, f
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
     sources = sorted((PKG / "csrc").iterdir())
     assert PKG / "csrc" / "seqmatch.cc" in sources
+    assert PKG / "csrc" / "tfrecord.cc" in sources
     offenders = [f.name for f in sources
                  if re.search(r'^\s*#\s*include\s*["<][^">]*(radian_tpu/|\.\.)',
                               f.read_text(), re.M)]
     assert not offenders, offenders
-    for name in ("beam_search", "beam_search_lm", "seqmatch"):
+    for name in ("beam_search", "beam_search_lm", "seqmatch", "tfrecord"):
         assert _build._source(name).parent == PKG / "csrc"
         assert _build._target(name).parent == PKG / "_build"
     pat = re.compile(r"^(import|from)\s+(torch|radian_tpu_torch)\b", re.M)
