@@ -7,13 +7,16 @@ parameters): the default global-mode no-LM basecall, global mode with
 the bench's 12-mer LM fused in (float32 and bfloat16 forwards), chunk
 mode (the reference's --decode-type chunk) and chunk_lm (the tiled,
 LM-fused chunk decode), the global strips / windows / 'mean' forwards
-and the fallback geometry, chunk mode with the device consensus, and
+and the fallback geometry, chunk mode with the device consensus,
 training (the training CLI at the default config's full width, on
-synthetic shards), and checks them:
+synthetic shards), and the multi-GPU paths (a mesh of two replicas,
+read sharding, data-parallel training in a process group) on the one
+card, and checks them:
 
   1. device   nvidia-smi name and power limit, torch's device name
   2. build    nvcc builds every csrc/*.cu kernel and g++ the csrc/*.cc
-              stitcher from this checkout (one compiler a source, in
+              host sources (stitcher, shard codec, OpenMP decoder) from
+              this checkout (one compiler a source, in
               parallel); ptxas registers, stack frame and spills per
               kernel instantiation
   3. kernel   no-LM beam-search kernels vs their plain PyTorch version,
@@ -121,6 +124,29 @@ synthetic shards), and checks them:
               split by CUDA events into forward / CTC / backward /
               optimizer; the CTC loss's forward + backward timed alone
               beside its plain recursion, their gradients within 1e-3
+  10. multi   the multi-GPU paths, on the one card: a. Basecaller(mesh=
+              make_mesh(data=2, devices=[cuda:0, cuda:0])), two replicas
+              splitting each read_batch, on phase 5's 512 reads (timed,
+              the launch counts set to 0 just before: the decode and
+              backtrace kernels must launch once a slice), strings ==
+              phase 5's; chunk 'fused' and global+LM the same way on
+              phase 4's reads, == phases 7 and 5b's card strings; b.
+              two processes given torchrun's variables (both LOCAL_RANK
+              0, the one card) form the group by initialize() as the
+              CLI's --shard-reads does, load a Basecaller on a bare
+              'cuda' and run basecall_sharded as rank 0 and 1 of 2 over
+              phase 4's reads (a fast5 directory where h5py is
+              installed, else the reads), merged: == the unsharded
+              fasta; c. a one-rank NCCL
+              group: phase 9c's 3 steps (batch 8, f32, cuDNN
+              deterministic) bit-equal to the steps without a group (and
+              a second run without one, reported), then a step at batch
+              256 f32 in the group beside phase 9d's, and the gradient
+              all-reduce (2,200,581 f32) alone; d. two processes, two
+              gloo ranks on the card, phase 9c's global batches split
+              5 + 3 (rank 1 padded with zero-weight filler), 3 steps:
+              the ranks' parameters bit-equal, the 3 losses within 1e-5
+              relative of 10c's steps without a group
 
 Each phase prints its seconds ("[phase-time] step=...").
 
@@ -426,7 +452,7 @@ def e2e_lm(dev, flat, reads, small, opts):
                 _fail("card strings differ from the port's CPU run with "
                       "the LM (float32)")
             out = {"launches": launches, "first": first,
-                   "fusions": {"f32": fusion}}
+                   "fusions": {"f32": fusion}, "small_strings": got}
         else:
             out["fusions"]["bf16"] = fusion
         del bc
@@ -700,7 +726,8 @@ def e2e_chunk(dev, reads, small) -> dict:
                   f"({prep})")
     if got["fused"] != got["windows"]:
         _fail("chunk 'fused' and 'windows' strings differ on the card")
-    return {"launches": launches, "first": first}
+    return {"launches": launches, "first": first,
+            "small_strings": got["fused"]}
 
 
 def e2e_chunk_lm(dev, flat, reads, small, lm) -> dict:
@@ -1273,6 +1300,8 @@ def train_phase(dev, small) -> dict:
               first_step_grad_rel_diff=f"{grad_rel:.3e}",
               max_abs_param_diff=f"{dp:.3e}",
               card_s=f"{secs[str(dev)]:.1f}", cpu_s=f"{secs['cpu']:.1f}")
+        if dtype == "float32":
+            out["batches_9c"] = batches
         out[f"card_vs_cpu_{dtype}"] = {
             "rel_loss_diff": rel.tolist(),
             "first_step_grad_rel_diff": grad_rel,
@@ -1358,6 +1387,340 @@ def train_phase(dev, small) -> dict:
                   "bound_ms": ctc_bound, "bound_by": ctc_by,
                   "library_ms": ctc_ms, "max_abs_grad_err": ctc_err}
     return out
+
+
+# phase 10d: two gloo ranks on one card against one process, 3 steps
+# (both with cuDNN deterministic, so the two differ only in the ranks'
+# partial sums); measured on the card at most 1.1e-7.  Adam's first
+# updates are lr·sign(g) an element, so a stack that rounds the partial
+# sums further apart can move an element ±lr apart and miss this: a CPU
+# rehearsal of the phase put step 3 at 1.6e-4
+DDP_LOSS_RTOL = 1e-5
+DDP_SPLIT = 5  # rank 0's rows of each global batch of 8; rank 1 pads 3
+DDP_TIMEOUT_S = 300
+# phase 10b's Basecaller, in each rank and unsharded
+SHARD_OPTS = dict(beam_width=6, read_batch=2, bucket_quantum=4096)
+
+
+def mesh_inference(dev, reads, opts, want, e2e_rate, small, small_want,
+                   chunk_want, lm, lm_want) -> dict:
+    """Phase 10a: ``Basecaller(mesh=make_mesh(data=2, devices=[dev,
+    dev]))``, two replicas on the one card, against phases 5, 7 and 5b's
+    strings; every slice must launch the decode (or LM decode) and the
+    backtrace kernels.  Returns the 512-read run's launch counts."""
+    import torch
+
+    from radian_tpu_torch.models.checkpoint import (
+        load_params_npz,
+        params_from_flax,
+    )
+    from radian_tpu_torch.parallel import make_mesh
+    from radian_tpu_torch.pipeline import (
+        Basecaller,
+        BasecallOptions,
+        load_basecaller,
+    )
+
+    mesh = make_mesh(data=2, devices=[dev, dev])
+    bc = load_basecaller(TRAINED, options=opts, mesh=mesh, device=dev)
+    seqs, launches = timed_run(dev, bc, reads, "mesh", path="global",
+                               data=2, replicas=len(bc._replicas))
+    slices = 2 * len(bc.batches(reads))
+    same = sum(a == b for a, b in zip(seqs, want))
+    _line("mesh", path="global", identical_to_phase5=same,
+          phase5_reads_per_s=f"{e2e_rate:.2f}", slices=slices)
+    if same != len(reads):
+        _fail(f"mesh strings differ from phase 5's on {len(reads) - same} "
+              "reads")
+    if (launches["beam_decode"] != slices
+            or launches["beam_backtrace"] != slices
+            or launches["beam_decode_lm"]):
+        _fail(f"a mesh slice did not launch its kernels: {launches} for "
+              f"{slices} slices")
+    out = {"launches": launches}
+    params = params_from_flax(load_params_npz(TRAINED))
+    small_kw = dict(beam_width=6, read_batch=4, bucket_quantum=4096)
+    for path, want_small, kw, lm_ in (
+            ("chunk-fused", chunk_want, dict(decode_type="chunk"), None),
+            ("global-lm", lm_want, {}, lm)):
+        bc = Basecaller(params, lm=lm_, options=BasecallOptions(
+            **small_kw, **kw), mesh=mesh, device=dev)
+        zero_launches()
+        got = bc.basecall_signals(small)
+        torch.cuda.synchronize()
+        n = read_launches()
+        decode = "beam_decode_lm" if lm_ is not None else "beam_decode"
+        slices = 2 * len(bc.batches(small))
+        same = sum(a == b for a, b in zip(got, want_small))
+        _line("mesh", path=path, reads=len(small), identical=same,
+              slices=slices, launches=json.dumps(n, separators=(",", ":")))
+        if same != len(small):
+            _fail(f"mesh strings differ from the unsharded card run "
+                  f"({path})")
+        if n[decode] != slices or n["beam_backtrace"] != slices:
+            _fail(f"a mesh slice did not launch its kernels ({path}): {n}")
+    return out
+
+
+def sharded_reads(dev, small, tmp: Path) -> None:
+    """Phase 10b: two processes, each given torchrun's variables, run
+    ``basecall_sharded`` as rank 0 and 1 of 2 over phase 4's reads (a
+    fast5 directory where h5py is installed, else the reads themselves);
+    their shards merged equal this process's unsharded fasta."""
+    import socket
+
+    from radian_tpu_torch.io.fast5 import Fast5Read
+    from radian_tpu_torch.parallel.distributed import merge_fasta_shards
+    from radian_tpu_torch.pipeline import BasecallOptions, load_basecaller
+
+    ids = [f"read{i}" for i in range(len(small))]
+    np.savez(tmp / "reads.npz", **dict(zip(ids, small)))
+    try:
+        import h5py
+    except ImportError:
+        source = "reads (no h5py here)"
+    else:
+        (tmp / "f5").mkdir()
+        with h5py.File(tmp / "f5" / "reads.fast5", "w") as f:
+            for rid, sig in zip(ids, small):
+                raw = f.create_group(f"read_{rid}/Raw")
+                raw.attrs["read_id"] = rid
+                raw.create_dataset("Signal", data=sig)
+        source = "fast5"
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = str(sk.getsockname()[1])
+    outs = rank_processes("--shard-rank", tmp, dev, env=lambda r: dict(
+        RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0",
+        MASTER_ADDR="127.0.0.1", MASTER_PORT=port))
+    merged = merge_fasta_shards(tmp / "sharded", tmp / "merged.fasta", ids)
+    reads = [Fast5Read(rid, sig) for rid, sig in zip(ids, small)]
+    load_basecaller(TRAINED, options=BasecallOptions(**SHARD_OPTS), device=dev
+                    ).basecall_directory(None, tmp / "one", verbose=False,
+                                         reads=reads)
+    same = ((tmp / "merged.fasta").read_text()
+            == (tmp / "one" / "reads-0.fasta").read_text())
+    _line("shard-reads", source=source, ranks=[o["rank"] for o in outs],
+          devices=[o["device"] for o in outs],
+          written=[o["written"] for o in outs], merged=merged,
+          merged_equals_unsharded=same,
+          seconds=[round(o["seconds"], 1) for o in outs])
+    if [o["rank"] for o in outs] != [0, 1] or any(
+            o["world"] != 2 for o in outs):
+        _fail(f"the shard ranks did not form a group of 2: {outs}")
+    if not same or merged != len(small):
+        _fail("the merged fasta shards differ from the unsharded fasta")
+
+
+def shard_rank_main(rank: int, tmp: Path, device: str) -> int:
+    """One rank of phase 10b (``chip_smoke.py --shard-rank R DIR cuda``,
+    torchrun's variables set): the CLI's --shard-reads route."""
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from radian_tpu_torch.io.fast5 import Fast5Read
+    from radian_tpu_torch.parallel.distributed import (
+        basecall_sharded,
+        initialize,
+        world_size,
+    )
+    from radian_tpu_torch.pipeline import BasecallOptions, load_basecaller
+
+    t0 = time.perf_counter()
+    initialize(device=device)
+    bc = load_basecaller(TRAINED, options=BasecallOptions(**SHARD_OPTS), device=device)
+    reads = None
+    f5 = tmp / "f5"
+    if not f5.exists():
+        data = np.load(tmp / "reads.npz")
+        reads = [Fast5Read(rid, data[rid]) for rid in data]
+    written = basecall_sharded(bc, f5, tmp / "sharded", False, reads=reads)
+    print(json.dumps({"rank": dist.get_rank(), "world": world_size(),
+                      "device": str(bc.device), "written": written,
+                      "seconds": time.perf_counter() - t0}))
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_processes(flag: str, tmp: Path, dev, env=None) -> list[dict]:
+    """Run ``chip_smoke.py FLAG R TMP DEVICE`` for ranks 0 and 1 together,
+    each with ``env(R)`` added, within DDP_TIMEOUT_S; the last stdout line
+    of each, as JSON."""
+    import os
+
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+         str(tmp), dev.type], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, **(env(r) if env else {})))
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=DDP_TIMEOUT_S)
+            if p.returncode != 0:
+                _fail(f"rank process {flag} failed (exit {p.returncode}):"
+                      f"\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            p.kill()
+    return outs
+
+
+def one_rank_group(dev, batches, tmp: Path, step_ms_9d: float) -> dict:
+    """Phase 10c: the Trainer's steps in a one-rank NCCL group equal the
+    steps without a group bit for bit (cuDNN deterministic for both);
+    then a step at batch 256 f32 in the group, beside phase 9d's, and the
+    gradient all-reduce alone."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from radian_tpu_torch.config import default_config
+    from radian_tpu_torch.train.trainer import TrainConfig, Trainer
+    from radian_tpu_torch.utils.synthetic import kmer_level_table, synth_windows
+
+    def steps():
+        tr = Trainer(default_config(), TrainConfig(checkpoint_dir=None,
+                                                   device=str(dev)))
+        losses = [tr.train_step(tr._put_batch(b)) for b in batches]
+        return tr.grouped, losses, tr.params
+
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {"none": steps(), "none_again": steps()}
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'nccl'}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        runs["group"] = steps()
+        torch.backends.cudnn.deterministic = det
+
+        def equal(a, b):
+            return (all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+                    and all(torch.equal(a[2][k], b[2][k]) for k in a[2]))
+
+        rerun_equal = equal(runs["none"], runs["none_again"])
+        group_equal = equal(runs["none"], runs["group"])
+        dp = max(float((runs["group"][2][k] - v).abs().max())
+                 for k, v in runs["none"][2].items())
+        _line("ddp-one-rank", backend="nccl", grouped=runs["group"][0],
+              steps=len(batches), rerun_bit_equal=rerun_equal,
+              group_bit_equal=group_equal, max_abs_param_diff=f"{dp:.3e}",
+              losses=[float(x) for x in runs["group"][1]])
+        if not runs["group"][0] or not group_equal:
+            _fail("the Trainer's steps in a one-rank NCCL group differ "
+                  "from the steps without a group")
+        out.update(group_bit_equal=group_equal, rerun_bit_equal=rerun_equal,
+                   losses_no_group=[float(x) for x in runs["none"][1]])
+        del runs
+
+        # batch 256 f32 in the group, as phase 9d
+        rng = np.random.default_rng(10)
+        b = synth_windows(rng, 256, window=1024,
+                          levels=kmer_level_table(rng), dwell_mean=40.0,
+                          dwell_std=8.0)
+        torch.cuda.empty_cache()
+        tr = Trainer(default_config(), TrainConfig(checkpoint_dir=None,
+                                                   device=str(dev)))
+        batch = tr._put_batch(b)
+        for _ in range(3):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        n_steps = 10
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in tr.params.values()])
+        ar_ms = cuda_ms(lambda: dist.all_reduce(flat), 20)
+        cat_ms = cuda_ms(lambda: torch.cat([p.detach().reshape(-1)
+                                            for p in tr.params.values()]), 20)
+        _line("ddp-one-rank", batch=256, dtype="float32",
+              ms_per_step=f"{step_ms:.2f}",
+              phase9d_ms_per_step=f"{step_ms_9d:.2f}",
+              allreduce_ms=f"{ar_ms:.4f}", cat_ms=f"{cat_ms:.4f}",
+              allreduce_mb=f"{flat.numel() * 4 / 1e6:.2f}")
+        out.update(ms_per_step=step_ms, phase9d_ms_per_step=step_ms_9d,
+                   allreduce_ms=ar_ms, cat_ms=cat_ms,
+                   params=int(flat.numel()))
+    finally:
+        torch.backends.cudnn.deterministic = det
+        dist.destroy_process_group()
+    return out
+
+
+def two_ranks(dev, batches, want_losses, tmp: Path) -> dict:
+    """Phase 10d: two processes, two gloo ranks on the one card, 3 steps
+    on phase 9c's global batches of 8 (rank 0 5 rows, rank 1 3 padded
+    to 5): the ranks' parameters equal, the losses within DDP_LOSS_RTOL
+    of one process's on the card (phase 10c, cuDNN deterministic)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # this process's cache, for the ranks'
+    np.savez(tmp / "batches.npz", **{f"{s}/{k}": v
+                                     for s, b in enumerate(batches)
+                                     for k, v in b.items()})
+    outs = rank_processes("--ddp-rank", tmp, dev)
+    params = [torch.load(tmp / f"rank{r}.pt", weights_only=True)
+              for r in range(2)]
+    equal = all(torch.equal(v, params[1][k]) for k, v in params[0].items())
+    got = np.asarray(outs[0]["losses"])
+    rel = np.abs(got - want_losses) / np.abs(want_losses)
+    _line("ddp-two-ranks", backend="gloo", ranks=2, steps=len(batches),
+          rows=[o["rows"] for o in outs], params_bit_equal=equal,
+          losses=[float(x) for x in got],
+          one_process_losses=[float(x) for x in want_losses],
+          rel_loss_diff=[f"{x:.3e}" for x in rel],
+          seconds=[round(o["seconds"], 1) for o in outs])
+    if not equal or outs[0]["losses"] != outs[1]["losses"]:
+        _fail("the two ranks' parameters or losses differ")
+    if not rel.max() <= DDP_LOSS_RTOL:
+        _fail(f"two ranks' losses differ from one process's by {rel} "
+              f"relative (> {DDP_LOSS_RTOL})")
+    return {"params_bit_equal": equal, "rel_loss_diff": rel.tolist()}
+
+
+def ddp_rank_main(rank: int, tmp: Path, device: str) -> int:
+    """One rank of phase 10d (``chip_smoke.py --ddp-rank R DIR cuda``)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from radian_tpu_torch.config import default_config
+    from radian_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    # gloo: NCCL refuses two ranks on one card
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'gloo'}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    torch.backends.cudnn.deterministic = True
+    cfg = default_config()
+    cfg.train.batch_size = DDP_SPLIT
+    tr = Trainer(cfg, TrainConfig(checkpoint_dir=None, device=device))
+    data = np.load(tmp / "batches.npz")
+    rows = slice(0, DDP_SPLIT) if rank == 0 else slice(DDP_SPLIT, None)
+    losses, real = [], []
+    for s in range(len({k.split("/")[0] for k in data})):
+        local = {k.split("/")[1]: data[k][rows] for k in data
+                 if k.startswith(f"{s}/")}
+        batch = tr._put_batch(local)
+        real.append([batch["signal"].shape[0], float(batch["weight"].sum())])
+        losses.append(float(tr.train_step(batch)))
+    torch.save({k: v.detach().cpu() for k, v in tr.params.items()},
+               tmp / f"rank{rank}.pt")
+    print(json.dumps({"rank": tr.rank, "world": tr.world, "losses": losses,
+                      "rows": real, "seconds": time.perf_counter() - t0}))
+    torch.distributed.destroy_process_group()
+    return 0
 
 
 def synth_signals(rng, lengths, levels):
@@ -1536,6 +1899,8 @@ def main() -> int:
         same = sum(a == b for a, b in zip(got, want))
         _line("e2e-check", beam=beam, reads=len(small),
               identical_to_cpu=same, lengths=[len(s) for s in got])
+        if beam == 6:
+            small_seqs = got
         if same != len(small):
             _fail(f"card strings differ from the port's CPU run at beam "
                   f"{beam}")
@@ -1629,6 +1994,30 @@ def main() -> int:
     # 9. training: the CLI, resume, card vs CPU, throughput, basecall ------
     train = train_phase(dev, small)
     phase_done("9")
+
+    # 10. multi-GPU paths on the one card -----------------------------------
+    import tempfile
+
+    mesh = mesh_inference(dev, reads, opts, seqs, len(reads) / wall, small,
+                          small_seqs, chunk_run["small_strings"],
+                          lm_run["lm"], lm_run["small_strings"])
+    phase_done("10a")
+    with tempfile.TemporaryDirectory(prefix="radian-multi-") as tmp:
+        tmp = Path(tmp)
+        (tmp / "b").mkdir()
+        (tmp / "c").mkdir()
+        (tmp / "d").mkdir()
+        sharded_reads(dev, small, tmp / "b")
+        phase_done("10b")
+        batches = train.pop("batches_9c")
+        group = one_rank_group(dev, batches, tmp / "c",
+                               train["throughput_float32"]["ms_per_step"])
+        phase_done("10c")
+        group_losses = np.asarray(group.pop("losses_no_group"))
+        train["ddp"] = {"one_rank_nccl": group,
+                        "two_ranks_gloo": two_ranks(dev, batches,
+                                                    group_losses, tmp / "d")}
+        phase_done("10d")
     kernels = [
         {"name": "beam_decode", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",
@@ -1636,14 +2025,16 @@ def main() -> int:
          "launches": launches["beam_decode"], "max_abs_err": dec_err,
          "ms": dec_ms, "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
          "bound_by": dec_by, "library_ms": None, "chunk": ck["decode"],
-         "train_launches": train["basecall_launches"]["beam_decode"]},
+         "train_launches": train["basecall_launches"]["beam_decode"],
+         "mesh_launches": mesh["launches"]["beam_decode"]},
         {"name": "beam_backtrace", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",
          "replaces": "radian_tpu/ops/beam_search.py:420",
          "launches": launches["beam_backtrace"], "max_abs_err": 0.0,
          "ms": bt_ms, "plain_ms": bt_plain_ms, "bound_ms": bt_bound,
          "bound_by": bt_by, "library_ms": None, "chunk": ck["backtrace"],
-         "train_launches": train["basecall_launches"]["beam_backtrace"]},
+         "train_launches": train["basecall_launches"]["beam_backtrace"],
+         "mesh_launches": mesh["launches"]["beam_backtrace"]},
         {"name": "beam_decode_lm", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search_lm.cu",
          "replaces": "radian_tpu/ops/beam_search.py:176",
@@ -1653,7 +2044,8 @@ def main() -> int:
          "bound_ms": lmk["dense", "f32"]["bound_ms"],
          "bound_by": lmk["dense", "f32"]["bound_by"], "library_ms": None,
          "chunk": ck["decode_lm"],
-         "train_launches": train["basecall_launches"]["beam_decode_lm"]},
+         "train_launches": train["basecall_launches"]["beam_decode_lm"],
+         "mesh_launches": mesh["launches"]["beam_decode_lm"]},
     ]
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"train": train}))
@@ -1666,4 +2058,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:  # one rank of phase 10d
+        sys.exit(ddp_rank_main(int(sys.argv[2]), Path(sys.argv[3]),
+                               sys.argv[4]))
+    if sys.argv[1:2] == ["--shard-rank"]:  # one rank of phase 10b
+        sys.exit(shard_rank_main(int(sys.argv[2]), Path(sys.argv[3]),
+                                 sys.argv[4]))
     sys.exit(main())

@@ -26,19 +26,27 @@ package's ``init_params`` for that seed, rebuilt in numpy
 (``models/init.py``).
 
 Training (``python -m radian_tpu_torch.cli.train -s SHARDS --device
-cuda``): the JAX ``Trainer`` on one device, from TFRecord shards, with
-the CTC loss (``F.ctc_loss``), optax's update rules written out in
-torch, checkpoints that keep the optimizer state, and ``--export-npz``
-for weights ``load_basecaller`` reads.
+cuda``): the JAX ``Trainer`` from TFRecord shards, with the CTC loss
+(``F.ctc_loss``), optax's update rules written out in torch,
+checkpoints that keep the optimizer state, and ``--export-npz`` for
+weights ``load_basecaller`` reads; data-parallel over a
+``torch.distributed`` group, one process per GPU.
+
+Multi-GPU inference: ``Basecaller(mesh=parallel.make_mesh(...))`` (the
+CLI's ``--mesh-data N``) splits each batch over a replica a device in
+one process; ``--shard-reads`` basecalls a process's round-robin share.
+Also ported: the read-identity evaluation (``eval``), the profiler and
+dataset utilities and plots (``utils``), and the JAX package's OpenMP
+host decoder (``ops/beam_native.py``, ``csrc/beamsearch.cc``).
 
 It imports ``torch`` and never ``jax`` or ``radian_tpu``.
 
 Subpackages
 -----------
 - ``radian_tpu_torch.ops``     preprocessing, windows and strips, matrix
-                               assembly, beam search (plain + CUDA), the
-                               chunk consensus (host C++ and device),
-                               the CTC loss, greedy decode
+                               assembly, beam search (plain, CUDA, host
+                               C++), the chunk consensus (host C++ and
+                               device), the CTC loss, greedy decode
 - ``radian_tpu_torch.models``  the sig2seq TCN network, the flax weight
                                bridge, Keras .h5 import, the seeded init
 - ``radian_tpu_torch.lm``      the k-mer LM tables (dense and packed)
@@ -47,7 +55,11 @@ Subpackages
 - ``radian_tpu_torch.io``      host I/O: fast5, fasta, TFRecord shards
                                (``csrc/tfrecord.cc``, built with ``g++``)
 - ``radian_tpu_torch.utils``   synthetic reads and training windows,
-                               the TensorBoard event writer
+                               the TensorBoard event writer, the
+                               profiler, dataset inspection, plots
+- ``radian_tpu_torch.parallel`` device meshes, process groups, read
+                               sharding
+- ``radian_tpu_torch.eval``    read identity (alignment, SAM)
 - ``radian_tpu_torch.cli``     basecall and train command lines
 """
 

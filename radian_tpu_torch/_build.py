@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, compiled
 by ``nvcc`` for Hopper (``sm_90a``) with a plain C interface; the host
-C++ ``csrc/<name>.cc`` (the chunk-mode stitcher, the TFRecord codec) is
-compiled the same way by ``g++``.  The hash is of the source, the flags
+C++ ``csrc/<name>.cc`` (the chunk-mode stitcher, the TFRecord codec, the
+OpenMP host decoder) is compiled the same way by ``g++``, with any extra
+flags of ``GXX_EXTRA_FLAGS``.  The hash is of the source, the flags
 and, for CUDA, the shared ``csrc/*.cuh`` headers, so an edited source
 never loads a stale library.  The build runs at first use, never at
 import; a failed build or load raises.
@@ -28,6 +29,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+# flags a host source needs beyond GXX_FLAGS (hashed into its file name)
+GXX_EXTRA_FLAGS = {"beamsearch": ["-fopenmp"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,19 +40,23 @@ _LL = ctypes.c_longlong
 # exported C functions: name -> (argtypes, restype)
 _SIGNATURES = {
     "beam_search": {
-        "radian_beam_decode": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-        "radian_beam_backtrace": ([_P, _P, _I, _I, _I, _P], _I),
+        "radian_beam_decode": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "radian_beam_backtrace": ([_P, _P, _I, _I, _I, _I, _P], _I),
         "radian_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "beam_search_lm": {
         "radian_beam_decode_lm": ([_P, _P, _P, _P, _I, _I, _F, _F, _P, _P, _P,
-                                   _I, _I, _I, _P], _I),
+                                   _I, _I, _I, _I, _P], _I),
         "radian_cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "seqmatch": {
         "LongestBlock": ([_P, _L, _P, _L, _P], None),
         "AssembleFragments": ([_P, _P, _L, _P], _L),
         "AssembleRead2": ([_P, _P, _L, _L, _P], _L),
+    },
+    "beamsearch": {
+        "BeamSearchBatch": ([_P, _L, _L, _P, _I, _P, _P, _I, ctypes.c_double,
+                             ctypes.c_double, _P, _P, _P], None),
     },
     "tfrecord": {
         "ParseShard": ([ctypes.c_char_p, _L, _L, _L, _L,
@@ -86,7 +93,9 @@ def _source(name: str) -> Path:
 
 
 def _flags(src: Path) -> list[str]:
-    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+    if src.suffix == ".cu":
+        return NVCC_FLAGS
+    return [*GXX_FLAGS, *GXX_EXTRA_FLAGS.get(src.stem, [])]
 
 
 def _target(name: str) -> Path:

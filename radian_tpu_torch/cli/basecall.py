@@ -1,8 +1,11 @@
 """Basecall CLI (counterpart of radian_tpu/cli/basecall.py).
 
-The JAX CLI's flags, same names and defaults, plus ``--device``.  The
-multi-GPU flags (``--mesh-data``, ``--shard-reads``) raise
-``NotImplementedError`` naming the ROADMAP item.
+The JAX CLI's flags, same names and defaults, plus ``--device``.
+``--mesh-data N`` shards each read batch over the first N GPUs in this
+process (with ``--device cpu``: N replicas on the CPU); ``--shard-reads``
+basecalls this process's round-robin share of the reads into
+``reads-h<rank>-*.fasta`` (``parallel/distributed.py``; the rank and
+world size are the process group's, or torchrun's variables).
 
 Usage:
     python -m radian_tpu_torch.cli.basecall FAST5_DIR FASTA_DIR --device cuda \
@@ -10,7 +13,8 @@ Usage:
         [--sig-model params.npz|model.h5] [--prep-mode strips|windows] \
         [--assembly-mode mean] \
         [--decode-type chunk [--chunk-prep fullprobs [--chunk-lm]] \
-         [--consensus device]] [--streaming]
+         [--consensus device]] [--streaming] [--mesh-data N] \
+        [--shard-reads]
 """
 
 from __future__ import annotations
@@ -90,7 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", default=0, type=int,
                    help="init seed when no --sig-model is given")
     p.add_argument("--mesh-data", type=int, default=None,
-                   help="shard each read batch over this many local GPUs")
+                   help="shard each read batch over this many local GPUs "
+                        "(single-process multi-GPU; --read-batch must be "
+                        "divisible by it)")
     p.add_argument("--shard-reads", action="store_true",
                    help="multi-host: each host basecalls its share of reads")
     p.add_argument("--streaming", action="store_true",
@@ -109,20 +115,32 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    """Basecall; with ``--shard-reads``, the process group this call
+    forms from torchrun's variables is destroyed before it returns."""
     args = build_parser().parse_args(argv)
+    if not args.shard_reads:
+        return _basecall(args)
 
+    import torch.distributed as dist
+
+    from radian_tpu_torch.parallel.distributed import initialize
+
+    # torchrun's group, if any, before anything lands on a bare 'cuda':
+    # it makes cuda:<LOCAL_RANK> this process's device
+    had_group = dist.is_initialized()
+    initialize(device=args.device)
+    try:
+        _basecall(args)
+    finally:
+        if not had_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _basecall(args) -> None:
     import torch
 
-    from radian_tpu_torch.pipeline import (
-        BasecallOptions,
-        load_basecaller,
-        unported,
-    )
+    from radian_tpu_torch.pipeline import BasecallOptions, load_basecaller
 
-    if args.mesh_data is not None:
-        raise unported("--mesh-data", "multi-GPU")
-    if args.shard_reads:
-        raise unported("--shard-reads", "multi-GPU")
     options = BasecallOptions(
         chunk_len=args.chunk_len,
         step_size=args.step_size,
@@ -145,6 +163,13 @@ def main(argv=None) -> None:
             if args.bucket_lengths else None
         ),
     )
+    mesh = None
+    if args.mesh_data is not None:
+        from radian_tpu_torch.parallel.mesh import make_mesh
+
+        devices = ([args.device] * args.mesh_data
+                   if torch.device(args.device).type == "cpu" else None)
+        mesh = make_mesh(data=args.mesh_data, model=1, devices=devices)
     bc = load_basecaller(
         checkpoint=args.sig_model,
         config_path=args.sig_config,
@@ -155,14 +180,20 @@ def main(argv=None) -> None:
             torch.bfloat16 if args.compute_dtype == "bfloat16"
             else torch.float32
         ),
+        mesh=mesh,
         device=args.device,
     )
     if args.prewarm:
         t = bc.warmup()
         print(f"prewarm: ran {len(set(options.bucket_lengths))} bucket "
               f"batches in {t:.1f}s")
-    bc.basecall_directory(args.fast5_dir, args.fasta_dir,
-                          streaming=args.streaming)
+    if args.shard_reads:
+        from radian_tpu_torch.parallel.distributed import basecall_sharded
+
+        basecall_sharded(bc, args.fast5_dir, args.fasta_dir)
+    else:
+        bc.basecall_directory(args.fast5_dir, args.fasta_dir,
+                              streaming=args.streaming)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,7 @@
 """Training CLI (counterpart of radian_tpu/cli/train.py).
 
 The JAX CLI's flags, same names and defaults (reference train.py:100-114
-plus the JAX package's), and ``--device`` and ``--export-npz``.  The
-multi-process and mesh flags raise ``NotImplementedError`` when they ask
-for more than one device (ROADMAP Queue 1 item 9).
+plus the JAX package's), and ``--device`` and ``--export-npz``.
 
 Usage:
     python -m radian_tpu_torch.cli.train -s SHARDS_DIR --device cuda \
@@ -13,6 +11,15 @@ Usage:
 
 ``SHARDS_DIR`` holds ``train/*.tfrecords`` and ``val/*.tfrecords``.
 Training shards repeat forever, so give ``--steps-per-epoch``.
+
+Data-parallel training runs one process per GPU: start each with
+``--num-processes N --process-id I --coordinator HOST:PORT`` (or a
+``file://`` URL), or under ``torchrun --nproc-per-node N`` with no
+flags; ``--device cpu`` trains over gloo on the CPU.  Each process reads
+its share of the train shards (``host_shard_files``) with data seed
+``seed + rank``; rank 0 writes the checkpoints, logs and export.
+``--mesh-model`` above 1 (tensor parallelism) raises
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -66,22 +73,34 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Train; returns the :class:`~radian_tpu_torch.train.trainer.Trainer`
-    (closed), for callers that drive the CLI from Python."""
+    (closed), for callers that drive the CLI from Python.  A process group
+    this call forms is destroyed before it returns."""
     args = build_parser().parse_args(argv)
 
+    import torch.distributed as dist
+
+    from radian_tpu_torch.parallel.distributed import initialize
+
+    had_group = dist.is_initialized()
+    initialize(args.coordinator, args.num_processes, args.process_id,
+               device=args.device)
+    try:
+        return _train(args)
+    finally:
+        if not had_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args):
     from radian_tpu_torch.config import default_config, get_config
     from radian_tpu_torch.models.checkpoint import save_params_npz
-    from radian_tpu_torch.pipeline import unported
-    from radian_tpu_torch.train.data import ShardDataset, list_shards
+    from radian_tpu_torch.parallel.distributed import rank, world_size
+    from radian_tpu_torch.train.data import (
+        ShardDataset,
+        host_shard_files,
+        list_shards,
+    )
     from radian_tpu_torch.train.trainer import TrainConfig, Trainer
-
-    if (args.coordinator is not None or args.num_processes not in (None, 1)
-            or args.process_id not in (None, 0)):
-        raise unported("multi-process training (--coordinator, "
-                       "--num-processes, --process-id)", "item 9, multi-GPU")
-    if args.mesh_data not in (None, 1) or args.mesh_model != 1:
-        raise unported("--mesh-data/--mesh-model above 1",
-                       "item 9, multi-GPU")
 
     config = (
         get_config(args.config_file) if args.config_file else default_config()
@@ -89,8 +108,8 @@ def main(argv=None):
     window = config.data.window_size
     batch = config.train.batch_size
 
-    # one process: it owns every train shard (host_shard_files(files, 0, 1))
-    train_files = list_shards(args.shards_dir, "train")
+    train_files = host_shard_files(list_shards(args.shards_dir, "train"),
+                                   rank(), world_size())
     val_files = list_shards(args.shards_dir, "val")
 
     tcfg = TrainConfig(
@@ -98,6 +117,8 @@ def main(argv=None):
         checkpoint_dir=args.checkpoint or args.checkpoint_dir,
         log_dir=args.log_dir,
         seed=args.seed,
+        mesh_data=args.mesh_data,
+        mesh_model=args.mesh_model,
         compute_dtype=args.compute_dtype,
         device=args.device,
     )
@@ -111,7 +132,7 @@ def main(argv=None):
     def train_factory():
         return ShardDataset(
             train_files, batch, train=True, window=window,
-            max_label=args.max_label, seed=args.seed,
+            max_label=args.max_label, seed=args.seed + rank(),
         )
 
     def val_factory():
@@ -131,7 +152,7 @@ def main(argv=None):
         )
     finally:
         trainer.close()
-    if args.export_npz:
+    if args.export_npz and trainer.rank == 0:
         save_params_npz(trainer.model, args.export_npz)
     print(f"final train loss: {history['train_loss'][-1]:.4f}")
     if history["val_loss"]:

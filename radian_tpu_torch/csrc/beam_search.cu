@@ -185,10 +185,14 @@ cudaError_t launch_decode(const float* logm, const int* lengths, int8_t* bp,
 
 extern "C" {
 
-// Returns a cudaError_t (0 = launched); the caller raises on anything else.
+// Each entry first makes `device` (the tensors' CUDA ordinal) current for
+// the calling thread: this library links nvcc's static CUDA runtime, whose
+// current device is its own, not torch's.  Returns a cudaError_t (0 =
+// launched); the caller raises on anything else.
 int radian_beam_decode(const void* logm, const void* lengths, void* bp, void* score,
-                       void* nlab, int T, int N, int W, void* stream) {
+                       void* nlab, int T, int N, int W, int device, void* stream) {
   if (N <= 0) return 0;
+  if (const cudaError_t e = cudaSetDevice(device); e != cudaSuccess) return e;
   const float* lm = static_cast<const float*>(logm);
   const int* ln = static_cast<const int*>(lengths);
   int8_t* b = static_cast<int8_t*>(bp);
@@ -216,9 +220,11 @@ int radian_beam_decode(const void* logm, const void* lengths, void* bp, void* sc
   }
 }
 
-int radian_beam_backtrace(const void* bp, void* rev, int T, int W, int N, void* stream) {
+int radian_beam_backtrace(const void* bp, void* rev, int T, int W, int N, int device,
+                          void* stream) {
   if (N <= 0) return 0;
   if (W < 1 || W > kMaxBeam) return cudaErrorInvalidValue;
+  if (const cudaError_t e = cudaSetDevice(device); e != cudaSuccess) return e;
   const int blocks = (N + kWarps - 1) / kWarps;
   beam_backtrace_kernel<<<blocks, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(bp), static_cast<int*>(rev), T, W, N);

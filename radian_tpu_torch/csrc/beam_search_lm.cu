@@ -406,14 +406,17 @@ cudaError_t launch(int w, const Table& table, const Args& a) {
 extern "C" {
 
 // table_kind: 0 dense f32, 1 dense bf16, 2 packed f32, 3 packed bf16;
-// t1/t2 = probs/entropy (dense) or l1/vals (packed).  Returns a
-// cudaError_t (0 = launched); the caller raises on anything else.
+// t1/t2 = probs/entropy (dense) or l1/vals (packed).  `device` (the
+// tensors' CUDA ordinal) is made current for the calling thread first:
+// nvcc's static runtime keeps its own current device, apart from torch's.
+// Returns a cudaError_t (0 = launched); the caller raises on anything else.
 int radian_beam_decode_lm(const void* probs, const void* lengths, const void* t1,
                           const void* t2, int table_kind, int ctx_len, float s_thr,
                           float r_thr, void* bp, void* score, void* nlab, int T, int N,
-                          int W, void* stream) {
+                          int W, int device, void* stream) {
   if (N <= 0) return 0;
   if (W < 1 || W > kMaxBeam || ctx_len < 0 || ctx_len > 15) return cudaErrorInvalidValue;
+  if (const cudaError_t e = cudaSetDevice(device); e != cudaSuccess) return e;
   const Args a{static_cast<const float*>(probs), static_cast<const int*>(lengths), ctx_len,
                s_thr, r_thr, static_cast<int8_t*>(bp), static_cast<float*>(score),
                static_cast<int*>(nlab), T, N, static_cast<cudaStream_t>(stream)};

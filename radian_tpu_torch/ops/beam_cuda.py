@@ -22,6 +22,8 @@ it launches its kernel or raises.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from radian_tpu_torch import _build
@@ -32,8 +34,22 @@ from radian_tpu_torch.ops import beam_search as plain
 MAX_BEAM = 16
 
 
-def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _target(t: torch.Tensor) -> tuple[int, int]:
+    """``(ordinal, stream)`` a launch for ``t`` goes to: ``t``'s device,
+    whatever the calling thread's current device, and that device's
+    current stream.  The C entries make the ordinal current for the
+    kernels' own (static) CUDA runtime before they launch."""
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+# the shards of a multi-device Basecaller launch from their own threads
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _require_cuda(name: str, t: torch.Tensor) -> None:
@@ -73,9 +89,9 @@ def beam_decode_cuda(logm: torch.Tensor, lengths: torch.Tensor,
     lib = _build.load("beam_search")
     err = lib.radian_beam_decode(
         logm.data_ptr(), lengths.data_ptr(), bp.data_ptr(), score.data_ptr(),
-        nlab.data_ptr(), t_len, n, beam_width, _stream_ptr(logm))
+        nlab.data_ptr(), t_len, n, beam_width, *_target(logm))
     _build.check(lib, err, "beam_decode_kernel launch")
-    beam_decode_cuda.launches += 1
+    _count(beam_decode_cuda)
     return bp, nlab, score
 
 
@@ -96,9 +112,9 @@ def beam_backtrace_cuda(bp: torch.Tensor) -> torch.Tensor:
     rev = torch.empty((n, t_len), dtype=torch.int32, device=bp.device)
     lib = _build.load("beam_search")
     err = lib.radian_beam_backtrace(bp.data_ptr(), rev.data_ptr(), t_len, w,
-                                    n, _stream_ptr(bp))
+                                    n, *_target(bp))
     _build.check(lib, err, "beam_backtrace_kernel launch")
-    beam_backtrace_cuda.launches += 1
+    _count(beam_backtrace_cuda)
     return rev
 
 
@@ -177,9 +193,9 @@ def beam_decode_lm_cuda(probs: torch.Tensor, lengths: torch.Tensor,
         probs.data_ptr(), lengths.data_ptr(), lm.t1.data_ptr(),
         lm.t2.data_ptr(), kind, lm.ctx_len, lm.s_threshold, lm.r_threshold,
         bp.data_ptr(), score.data_ptr(), nlab.data_ptr(), t_len, n,
-        beam_width, _stream_ptr(probs))
+        beam_width, *_target(probs))
     _build.check(lib, err, "beam_decode_lm_kernel launch")
-    beam_decode_lm_cuda.launches += 1
+    _count(beam_decode_lm_cuda)
     return bp, nlab, score
 
 

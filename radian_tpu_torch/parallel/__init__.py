@@ -1,0 +1,7 @@
+from radian_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    make_mesh,
+    data_sharding,
+    replicated_sharding,
+    param_shardings,
+)

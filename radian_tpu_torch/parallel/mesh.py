@@ -1,0 +1,111 @@
+"""Device meshes and batch splitting (counterpart of
+radian_tpu/parallel/mesh.py).
+
+A ``Mesh`` here is a ``[data, model]`` grid of ``torch.device``s with
+the JAX package's axis names.  Inference shards each read batch's rows
+over the ``data`` axis in one process (``Basecaller(mesh=...)``), one
+model replica on each device, exactly as the JAX package's
+``shard_map`` does: reads are independent, so no collective runs.
+Training shards over processes instead, one GPU each
+(``parallel/distributed.py``).
+
+The ``model`` axis (tensor parallelism: ``param_shardings``) is not
+ported (ROADMAP.md, Queue 1 item 11); a mesh may name it, at size 1.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+AXES = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """``devices``: an object array of ``torch.device`` shaped like
+    ``axis_names``.  The same device may appear more than once (several
+    replicas on one card, or on the CPU)."""
+
+    devices: np.ndarray
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"a {self.devices.ndim}-d device grid needs as "
+                             f"many axis names, got {self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def data_devices(self) -> list[torch.device]:
+        """One device per ``data`` index: the first of each model row."""
+        grid = np.moveaxis(self.devices, self.axis_names.index("data"), 0)
+        return [row.flat[0] for row in grid]
+
+
+def make_mesh(data: int | None = None, model: int = 1,
+              devices: Sequence[str | torch.device] | None = None) -> Mesh:
+    """A ``(data, model)`` mesh; ``data=None`` takes every device given,
+    by default every local CUDA device (raising when there is none:
+    pass ``devices`` to run on the CPU, e.g. ``["cpu", "cpu"]``)."""
+    if devices is None:
+        n_cuda = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n_cuda == 0:
+            raise RuntimeError(
+                "no CUDA device is available; pass devices=[...] (e.g. "
+                "['cpu', 'cpu']) to build a mesh on the CPU")
+        devices = [torch.device("cuda", i) for i in range(n_cuda)]
+    devices = [torch.device(d) for d in devices]
+    if data is None:
+        data = len(devices) // model
+    n = data * model
+    if data < 1 or model < 1 or n > len(devices):
+        raise ValueError(f"mesh {data}x{model} needs {n} devices, have "
+                         f"{len(devices)}")
+    grid = np.empty(n, dtype=object)
+    grid[:] = devices[:n]
+    return Mesh(grid.reshape(data, model), AXES)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A tensor's leading (batch) axis split over a mesh's ``data``
+    devices, as ``data_sharding`` gives it."""
+
+    mesh: Mesh
+
+    def parts(self, x: torch.Tensor) -> list[tuple[torch.Tensor,
+                                                   torch.device]]:
+        """``(part, device)`` per data device: ``x``'s equal row slices in
+        order; nothing is copied yet."""
+        devices = self.mesh.data_devices()
+        if x.shape[0] % len(devices):
+            raise ValueError(f"{x.shape[0]} rows do not split evenly over "
+                             f"the mesh's {len(devices)} data devices")
+        return list(zip(torch.chunk(x, len(devices)), devices))
+
+
+def data_sharding(mesh: Mesh, ndim: int = 1) -> Sharding:
+    """Shard the leading (batch) axis over 'data' (``ndim`` is the JAX
+    signature's; the split is always of the leading axis)."""
+    del ndim
+    return Sharding(mesh)
+
+
+def replicated_sharding(mesh: Mesh) -> list[torch.device]:
+    """The devices a replicated value lives on: one copy on each data
+    device (``Basecaller(mesh=...)`` puts a model replica on each)."""
+    return mesh.data_devices()
+
+
+def param_shardings(params, mesh: Mesh):
+    """Tensor-parallel parameter shardings: not ported."""
+    raise NotImplementedError(
+        "param_shardings (tensor parallelism over the 'model' axis) is not "
+        "ported to radian_tpu_torch yet (ROADMAP.md, Queue 1: item 11, "
+        "tensor parallelism)")

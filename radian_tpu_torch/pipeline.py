@@ -30,13 +30,18 @@ window on its own and stitches the fragments on the host:
   is a concatenation, and ``chunk_lm`` fuses the LM into that decode.
 
 The host does fast5 ingest, padding, label rendering, the stitch and
-fasta output, in batches or streaming.  The multi-GPU options raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+fasta output, in batches or streaming.  On a mesh (``mesh=``, from
+``parallel.make_mesh``) each padded batch's rows are split over the
+``data`` axis, one model replica on each device, each slice run and
+copied back from its own host thread, and the strings joined in row
+order: the unsharded strings, read for read.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import copy
 import dataclasses
 import os
 import time
@@ -83,6 +88,11 @@ from radian_tpu_torch.ops.preprocess import (
     max_windows_for,
     preprocess_read,
     preprocess_read_strips,
+)
+from radian_tpu_torch.parallel.mesh import (
+    data_sharding,
+    make_mesh,
+    replicated_sharding,
 )
 
 
@@ -194,8 +204,10 @@ def unported(what: str, item: str):
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
-    """The device an entry point runs on; a CUDA device without a card
-    raises instead of quietly falling back to the CPU."""
+    """The device an entry point runs on, a bare ``cuda`` fixed to the
+    current device (``cuda:<LOCAL_RANK>`` once a process group has set
+    it); a CUDA device without a card raises instead of quietly falling
+    back to the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -203,7 +215,45 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "plain PyTorch path on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _host(x):
+    """A device tensor's values as a numpy array (None and arrays pass)."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _run_here(fn, *args) -> concurrent.futures.Future:
+    """``fn(*args)`` on the calling thread, as a finished future."""
+    done = concurrent.futures.Future()
+    done.set_result(fn(*args))
+    return done
+
+
+def _on(device: torch.device):
+    """Make ``device`` the calling thread's current CUDA device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class _ShardedBatch(NamedTuple):
+    """A dispatched batch: each future gives its row slice's host record
+    ``(mode, mads, packed, n_wins, n_lab)``, in row order."""
+
+    idxs: list
+    futures: list
+
+    def record(self):
+        """The slices' records joined in row order, as the batch's record
+        ``(mode, idxs, mads, packed labels, windows a read, n_labels or
+        None)`` that ``Basecaller._collect_batch`` renders."""
+        parts = [f.result() for f in self.futures]
+        fields = zip(*(p[1:] for p in parts))
+        return (parts[0][0], self.idxs,
+                *(None if f[0] is None else np.concatenate(f) for f in fields))
 
 
 def _first_renorm_trim(mats, n_wins, pad_ends, *, window: int, step: int):
@@ -465,7 +515,7 @@ def _chunk_decode(probs, geom: ChunkGeometry, *, opts: BasecallOptions,
 
 
 class Basecaller:
-    """Bucketed, batched basecaller on one device, global or chunk mode.
+    """Bucketed, batched basecaller, global or chunk mode.
 
     ``lm`` (a ``KmerLM`` of ``options.context_len``) fuses the k-mer LM
     into the global decode, or with ``options.chunk_lm`` into the tiled
@@ -473,6 +523,19 @@ class Basecaller:
     (``KmerLM.compressed()``) when that is under
     ``options.packed_lm_max_bytes`` and dense otherwise, in
     ``options.lm_table_dtype``.
+
+    Pass ``mesh`` (a ``parallel.Mesh`` with a ``data`` axis, e.g. from
+    ``parallel.make_mesh``) to shard each read batch over its data
+    devices in one process, as the JAX package's ``shard_map`` does: one
+    replica of the model and the LM tables on each data device, each
+    batch's ``read_batch`` rows split into equal slices (so
+    ``read_batch`` must divide by the data size), each slice run and
+    copied to the host from its own thread, the strings joined in row
+    order.  Reads are independent, so the strings are the unsharded
+    ones.  ``device`` must be one of the mesh's devices: it holds the
+    unsharded helpers (``forward``, ``decode``, ``chunk_*``) and the
+    device consensus.  Without a mesh, the Basecaller is a mesh of one
+    replica on ``device``.
     """
 
     def __init__(
@@ -487,8 +550,6 @@ class Basecaller:
     ):
         self.config = config if config is not None else default_config()
         self.options = o = options or BasecallOptions()
-        if mesh is not None:
-            raise unported("mesh", "multi-GPU")
         if o.decode_type not in ("global", "chunk"):
             raise ValueError(f"decode_type={o.decode_type!r}: 'global' or "
                              "'chunk'")
@@ -511,6 +572,9 @@ class Basecaller:
             raise ValueError(f"prep_mode={o.prep_mode!r}: 'auto', "
                              "'fullread', 'strips' or 'windows'")
         self.device = resolve_device(device)
+        self.mesh = (make_mesh(data=1, devices=[self.device])
+                     if mesh is None else mesh)
+        devices = self._mesh_devices(self.mesh)
         self.lm_fusion = (None if lm is None
                           else self._lm_tables(lm, compute_dtype))
         self.model = build_model(self.config, compute_dtype)
@@ -533,6 +597,46 @@ class Basecaller:
                 "'first' assembly, step | window, and window-step >= ctx "
                 f"({self.strip_ctx})")
         self._chunk_setup(rf, lm is not None)
+        # one replica a data device: ``self`` on ``device`` (it serves the
+        # unsharded helpers), copies of its model and tables elsewhere
+        home = devices.index(self.device)
+        self._replicas = [self if i == home else self._replica(d)
+                          for i, d in enumerate(devices)]
+        # two threads a replica (on a mesh of several): one slice's host
+        # copy waits while the next batch's slice is queued
+        self._shard_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=2 * len(devices), thread_name_prefix="radian-shard")
+
+    def _replica(self, device: torch.device) -> "Basecaller":
+        """This Basecaller with its model and LM tables copied to
+        ``device``."""
+        rep = copy.copy(self)
+        rep.device = device
+        rep.model = copy.deepcopy(self.model).to(device)
+        if self.lm_fusion is not None:
+            rep.lm_fusion = self.lm_fusion._replace(
+                t1=self.lm_fusion.t1.to(device),
+                t2=self.lm_fusion.t2.to(device))
+        return rep
+
+    def _mesh_devices(self, mesh) -> list[torch.device]:
+        """The mesh's data devices, checked as the JAX package checks a
+        mesh (radian_tpu/pipeline.py:632-640)."""
+        o = self.options
+        if "data" not in mesh.axis_names:
+            raise ValueError("inference mesh needs a 'data' axis")
+        if o.read_batch % mesh.shape["data"] != 0:
+            raise ValueError(
+                f"read_batch {o.read_batch} must be divisible by the mesh "
+                f"data axis ({mesh.shape['data']})")
+        if mesh.shape.get("model", 1) != 1:
+            raise unported("a mesh 'model' axis above 1",
+                           "item 11, tensor parallelism")
+        devices = replicated_sharding(mesh)
+        if self.device not in devices:
+            raise ValueError(f"device {self.device} is not among the mesh's "
+                             f"data devices {[str(d) for d in devices]}")
+        return [resolve_device(d) for d in devices]
 
     def _chunk_setup(self, rf: int, has_lm: bool) -> None:
         """Chunk-mode geometry (radian_tpu/pipeline.py:761-812): the head
@@ -731,6 +835,12 @@ class Basecaller:
         """One fixed-size padded batch on the device: ``read_batch`` rows
         of ``bucket`` samples (filler rows repeat the first read and are
         discarded).  int16 signals travel as int16."""
+        padded, lengths = self._pad_host(idxs, bucket, signals)
+        return (torch.from_numpy(padded).to(self.device),
+                torch.from_numpy(lengths).to(self.device))
+
+    def _pad_host(self, idxs, bucket, signals):
+        """``pad_batch``'s arrays, on the host."""
         n = self.options.read_batch
         real = len(idxs)
         dtypes = {np.asarray(signals[i]).dtype for i in idxs}
@@ -742,8 +852,7 @@ class Basecaller:
             sig = signals[idxs[j]] if j < real else signals[idxs[0]]
             padded[j, : len(sig)] = sig
             lengths[j] = len(sig)
-        return (torch.from_numpy(padded).to(self.device),
-                torch.from_numpy(lengths).to(self.device))
+        return padded, lengths
 
     def basecall_signals(
         self, signals: Sequence[np.ndarray]
@@ -756,54 +865,81 @@ class Basecaller:
         for idxs, b in self.batches(signals):
             inflight.append(self._dispatch_batch(idxs, b, signals))
             if len(inflight) >= 2:
-                self._collect_batch(inflight.pop(0), results)
+                self._collect_batch(inflight.pop(0).record(), results)
         for pend in inflight:
-            self._collect_batch(pend, results)
+            self._collect_batch(pend.record(), results)
         return results
 
-    @torch.inference_mode()
     def _dispatch_batch(self, idxs, bucket, signals):
-        """Queue one batch's device work; returns the record that
-        ``_collect_batch`` turns into strings: ``(mode, idxs, mads,
-        packed labels, windows a read, n_labels or None)``."""
+        """Run one batch's device work, a row slice a replica; returns the
+        ``_ShardedBatch`` of the slices' futures, whose ``record()``
+        ``_collect_batch`` turns into strings.  Several replicas each run
+        on a shard thread, so that one device's host copy does not hold
+        back the others; a lone replica runs on the calling thread, where
+        a card's queue is the same and torch's CPU ops keep their speed
+        (from a worker thread they ran at about half of it)."""
+        split = data_sharding(self.mesh)
+        padded, lengths = (split.parts(torch.from_numpy(x))
+                           for x in self._pad_host(idxs, bucket, signals))
+        run = (_run_here if len(self._replicas) == 1
+               else self._shard_pool.submit)
+        return _ShardedBatch(idxs, [
+            run(rep._slice_to_host, sig, ln, bucket)
+            for rep, (sig, _), (ln, _) in zip(self._replicas, padded,
+                                               lengths)])
+
+    @torch.inference_mode()
+    def _device_batch(self, padded, lengths, bucket):
+        """One padded batch's device work on ``self.device`` → ``(mode,
+        mads, packed labels, windows a read, n_labels or None)``."""
         o = self.options
-        padded, lengths = self.pad_batch(idxs, bucket, signals)
         if o.decode_type == "global":
             mats, t_reads, mads = self.forward(padded, lengths)
             packed, _ = self.decode(mats, t_reads)
-            return "global", idxs, mads, packed, None, None
+            return "global", mads, packed, None, None
         if self.use_chunk_fused:
             geom = self.chunk_geometry(lengths, bucket)
             norm, probs_full, mads = self.chunk_forward(padded, lengths)
             probs = self.chunk_window_probs(norm, probs_full, geom)
             del norm, probs_full
             packed, n_lab = self.chunk_decode(probs, geom)
-            return "chunk", idxs, mads, packed, geom.n_dec, n_lab
+            return "chunk", mads, packed, geom.n_dec, n_lab
         probs, n_wins, pad_ends, mads = _prep_and_model(
             self.model, padded, lengths, opts=o,
             max_windows=max_windows_for(bucket, o.chunk_len, o.step_size))
         packed, _ = _decode_windows(probs, n_wins, pad_ends, opts=o)
-        return "chunk", idxs, mads, packed, n_wins, None
+        return "chunk", mads, packed, n_wins, None
+
+    def _slice_to_host(self, padded: torch.Tensor, lengths: torch.Tensor,
+                       bucket: int):
+        """A mesh slice, on a shard thread: its host rows copied to this
+        replica's device and through its device work, the record copied
+        back to the host."""
+        with _on(self.device):
+            mode, *rec = self._device_batch(padded.to(self.device),
+                                            lengths.to(self.device), bucket)
+            return (mode, *map(_host, rec))
 
     def _collect_batch(self, pending, results) -> None:
-        """Copy a dispatched batch's labels to the host and render (global)
-        or stitch (chunk) each read's string into ``results``."""
+        """Render (global) or stitch (chunk) each read's string of a
+        batch's record (host arrays, or tensors copied here) into
+        ``results``."""
         o = self.options
         mode, idxs, mads, packed, n_wins, n_lab = pending
-        mads = mads.cpu().numpy()
+        mads = _host(mads)
         bad = ~np.isfinite(mads) | (mads == 0)
-        packed = packed.cpu().numpy()
+        packed = _host(packed)
         if mode == "global":
             rev = unpack_labels(packed)
             for j, i in enumerate(idxs):
                 if not bad[j]:
                     results[i] = labels_to_seq(rev[j])  # already 5'→3'
             return
-        n_wins = n_wins.cpu().numpy()
+        n_wins = _host(n_wins)
         if n_lab is not None:
             # the fused paths kept at most chunk_cap labels a window: a
             # window over it would be cut short, so fail loudly instead
-            n_lab = n_lab.cpu().numpy()
+            n_lab = _host(n_lab)
             win_valid = np.arange(n_lab.shape[1])[None, :] < n_wins[:, None]
             row_ok = (np.arange(n_lab.shape[0]) < len(idxs)) & ~bad
             over = (n_lab > self.chunk_cap) & win_valid & row_ok[:, None]
@@ -873,7 +1009,7 @@ class Basecaller:
             nonlocal n_written, next_flush
             rec, idx_list = inflight.pop(0)
             out: dict[int, str | None] = {}
-            self._collect_batch(rec, out)
+            self._collect_batch(rec.record(), out)
             for i in idx_list:
                 results[i] = out.get(i)
             while next_flush in results:

@@ -1,4 +1,5 @@
-"""CTC training on one device (counterpart of radian_tpu/train/trainer.py).
+"""CTC training, on one device or data-parallel over a process group
+(counterpart of radian_tpu/train/trainer.py).
 
 The JAX ``Trainer`` step, in torch: the seeded init of the JAX package
 (``models/init.py``, bit for bit), the CTC loss weighted by real rows
@@ -23,8 +24,21 @@ Three deliberate deviations from the JAX ``Trainer``:
 - ``fit`` materialises the val batches only where ``epoch_scan`` or
   ``eval_edit_distance`` needs them (the JAX one always lists them).
 
-The mesh options (``mesh_data``/``mesh_model`` above 1) are multi-GPU
-training, not ported yet.
+Data parallelism is one process per GPU, torch's idiom: inside a
+``torch.distributed`` group (``parallel/distributed.py``) the data axis
+spans the group's processes, so ``mesh_data`` must be the world size
+(``None`` takes it).  The JAX package can also shard over several chips
+in one process; the port cannot (a deliberate deviation, ROADMAP.md
+Queue 3).  Each process contributes its whole local batch, padded with
+zero-weight filler rows to ``config.train.batch_size``, to a global
+batch; the loss is the JAX one over that global batch, ``Σ(w·loss) /
+max(Σw, 1)``: the weight sum is all-reduced first, each rank divides its
+own ``Σ(w·loss)`` by it, and the gradients are summed (not averaged, as
+DDP would, which is wrong wherever the ranks' weight sums differ).  Rank
+0's initial parameters are broadcast; the optimizer, its global-norm
+clip and its schedule then run the same on every rank.  Only rank 0
+writes checkpoints and logs; every rank restores.  Tensor parallelism
+(``mesh_model`` above 1) is not ported (ROADMAP.md, Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from typing import Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from radian_tpu_torch.config import DotDict, default_config
 from radian_tpu_torch.models.sig2seq import build_model
@@ -76,9 +91,20 @@ class Trainer:
         self.config = (config if config is not None
                        else default_config()).copy()
         self.tcfg = train_config or TrainConfig()
-        if self.tcfg.mesh_data not in (None, 1) or self.tcfg.mesh_model != 1:
-            raise unported("mesh_data/mesh_model above 1",
-                           "item 9, multi-GPU")
+        # in a group (of any size, one rank too) every step all-reduces
+        self.grouped = dist.is_initialized()
+        self.world = dist.get_world_size() if self.grouped else 1
+        self.rank = dist.get_rank() if self.grouped else 0
+        if self.tcfg.mesh_model != 1:
+            raise unported("mesh_model above 1",
+                           "item 11, tensor parallelism")
+        if self.tcfg.mesh_data not in (None, self.world):
+            raise ValueError(
+                f"mesh_data={self.tcfg.mesh_data} in a group of "
+                f"{self.world} process(es): the data axis is the process "
+                "group, one process per GPU; start mesh_data processes "
+                "(the training CLI's --num-processes/--process-id/"
+                "--coordinator, or torchrun)")
         if self.config.model.tcn.dropout_rate > 0.0:
             raise NotImplementedError(
                 f"dropout_rate={self.config.model.tcn.dropout_rate}: the "
@@ -91,6 +117,10 @@ class Trainer:
         self.model.reset_parameters(self.tcfg.seed)
         self.model.to(self.device)
         self.params = dict(self.model.named_parameters())
+        if self.grouped:
+            with torch.no_grad():
+                for p in self.params.values():
+                    dist.broadcast(p, src=0)
         self.tx = build_optimizer(self.config.train.opt)
         self.opt_state = self.tx.init(self.params)
         self.step = 0
@@ -106,7 +136,7 @@ class Trainer:
             self._best_dir = self._ckpt_dir / "best"
         self._jsonl = None
         self._writer = None
-        if self.tcfg.log_dir:
+        if self.tcfg.log_dir and self.rank == 0:
             Path(self.tcfg.log_dir).mkdir(parents=True, exist_ok=True)
             self._jsonl = open(Path(self.tcfg.log_dir) / "metrics.jsonl",
                                "a")
@@ -121,19 +151,37 @@ class Trainer:
 
     # -- the step ----------------------------------------------------------
 
+    def _all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the group's processes (``x`` without one)."""
+        if self.grouped:
+            x = x.clone()
+            dist.all_reduce(x)
+        return x
+
     def loss(self, batch: dict, train: bool = True) -> torch.Tensor:
-        """Mean CTC loss over the batch's real rows (``weight`` 1; filler
-        rows weigh 0)."""
+        """This process's share of the mean CTC loss over the global
+        batch's real rows (``weight`` 1; filler rows weigh 0): its own
+        ``Σ(w·loss)`` over the group's ``Σw``.  Summed over the group,
+        the shares are the loss; without a group, the share is."""
         log_probs = self.model(batch["signal"][..., None], train=train)
         losses = ctc_loss(log_probs, batch["input_length"], batch["labels"],
                           batch["label_length"], blank_id=self.tcfg.blank_id)
         w = batch["weight"]
-        return (losses * w).sum() / w.sum().clamp_min(1.0)
+        return (losses * w).sum() / self._all_sum(w.sum()).clamp_min(1.0)
 
     def train_step(self, batch: dict) -> torch.Tensor:
-        """One update on a device batch; returns its loss (on the device)."""
+        """One update on a device batch; returns the global batch's loss
+        (on the device).  In a group, the gradients and the loss shares
+        are summed in one all-reduce."""
         loss = self.loss(batch)
         grads = torch.autograd.grad(loss, list(self.params.values()))
+        if self.grouped:
+            flat = torch.cat([*(g.reshape(-1) for g in grads),
+                              loss.detach().reshape(1)])
+            dist.all_reduce(flat)
+            loss = flat[-1]
+            grads = [part.view_as(g) for part, g in zip(
+                flat[:-1].split([g.numel() for g in grads]), grads)]
         self.opt_state = self.tx.apply(
             self.params, dict(zip(self.params, grads)), self.opt_state)
         self.step += 1
@@ -141,7 +189,8 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> torch.Tensor:
-        return self.loss(batch)
+        """The global batch's loss."""
+        return self._all_sum(self.loss(batch))
 
     # -- checkpointing ------------------------------------------------------
 
@@ -182,12 +231,16 @@ class Trainer:
         best seen so far, also replace the best-on-val checkpoint."""
         if self._ckpt_dir is None:
             return
+        best = val_loss is not None and float(val_loss) < self.best_val_loss
+        if best:
+            self.best_val_loss = float(val_loss)
+            self.best_epoch = epoch
+        if self.rank != 0:  # rank 0 writes; every rank holds the same
+            return
         payload = self._payload(epoch, val_loss)
         self._write(self._ckpt_dir, epoch, payload,
                     self.tcfg.keep_checkpoints)
-        if val_loss is not None and float(val_loss) < self.best_val_loss:
-            self.best_val_loss = float(val_loss)
-            self.best_epoch = epoch
+        if best:
             self._write(self._best_dir, epoch, payload, 1)
 
     def _restore_from(self, root: Path | None, epoch: int | None) -> int:
@@ -245,12 +298,22 @@ class Trainer:
 
     # -- batches ------------------------------------------------------------
 
-    @staticmethod
-    def _host_batch(batch: dict) -> dict:
-        """The host batch with its ``weight``: 1 a row (one device, so no
-        filler rows here)."""
+    def _host_batch(self, batch: dict) -> dict:
+        """The host batch with its ``weight``: 1 a real row.  Over two
+        ranks or more, a short local batch is padded to
+        ``config.train.batch_size`` rows with zero-weight filler rows
+        (copies of its first), as the JAX ``_host_batch`` pads the global
+        batch to its data axis."""
         out = {k: np.asarray(v) for k, v in batch.items()}
-        out["weight"] = np.ones(out["signal"].shape[0], np.float32)
+        n = out["signal"].shape[0]
+        out["weight"] = np.ones(n, np.float32)
+        pad = (max(self.config.train.batch_size - n, 0)
+               if self.world > 1 else 0)
+        if pad:
+            for k, v in out.items():
+                filler = (np.zeros((pad,) + v.shape[1:], v.dtype)
+                          if k == "weight" else np.repeat(v[:1], pad, axis=0))
+                out[k] = np.concatenate([v, filler], axis=0)
         return out
 
     def _put_batch(self, batch: dict) -> dict:
@@ -302,8 +365,9 @@ class Trainer:
 
     def evaluate_scan(self, stacked: dict, epoch: int | None = None,
                       tag: str = "val/loss") -> float:
-        """Val loss over the pool, each batch weighted by its real rows."""
-        real = stacked["weight"].sum(1)
+        """Val loss over the pool, each batch weighted by its real rows
+        (over the group)."""
+        real = self._all_sum(stacked["weight"].sum(1))
         losses = torch.stack([self.eval_step({k: v[i]
                                               for k, v in stacked.items()})
                               for i in range(real.shape[0])])
@@ -354,10 +418,14 @@ class Trainer:
         return mean
 
     def _evaluate(self, dataset: Iterable[dict]) -> tuple[float, int]:
+        """Each batch's global loss, weighted by its real rows (over the
+        group): every rank must see the same number of batches."""
         losses, weights = [], []
         for batch in dataset:
-            losses.append(float(self.eval_step(self._put_batch(batch))))
-            weights.append(batch["signal"].shape[0])
+            dev_batch = self._put_batch(batch)
+            losses.append(float(self.eval_step(dev_batch)))
+            weights.append(batch["signal"].shape[0] if not self.grouped else
+                           float(self._all_sum(dev_batch["weight"].sum())))
         if not losses:
             return float("nan"), 0
         return float(np.average(losses, weights=weights)), len(losses)

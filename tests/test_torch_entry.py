@@ -1,5 +1,5 @@
 """The port's entry points default to the card and refuse what it has
-not ported.  ``torch`` and the port are imported inside the test (see
+not ported (beams over 16, a mesh 'model' axis).  ``torch`` and the port are imported inside the test (see
 ``tests/torch_one_cpu.py``).
 """
 
@@ -22,17 +22,27 @@ def test_entry_points_default_to_the_card_and_refuse_unported(tmp_path):
             main(["in_dir", "out_dir"])
     params = build_model().state_dict()
     # what stays unported: beams over 16 (the reference's int8
-    # backpointers) and multi-GPU
+    # backpointers) and a mesh 'model' axis (tensor parallelism)
     for opts in (dict(beam_width=17), dict(decode_type="chunk",
                                            beam_width=17)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpipe.Basecaller(params, options=tpipe.BasecallOptions(**opts),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-GPU"):
-        tpipe.Basecaller(params, mesh=object(), device="cpu")
+    from radian_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+        tpipe.Basecaller(params, device="cpu", mesh=make_mesh(
+            data=1, model=2, devices=["cpu", "cpu"]))
+    # multi-GPU inference is ported: a mesh constructs, and the CLI's
+    # --mesh-data and --shard-reads run (on an empty directory here)
+    bc = tpipe.Basecaller(params, device="cpu", mesh=make_mesh(
+        data=2, devices=["cpu", "cpu"]))
+    assert len(bc._replicas) == 2
     for flag in (["--mesh-data", "2"], ["--shard-reads"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*multi-GPU"):
-            main(["in_dir", "out_dir", "--device", "cpu", *flag])
+        main([str(tmp_path), str(tmp_path / flag[0][2:]), "--device", "cpu",
+              *flag])
+    assert (tmp_path / "mesh-data" / "reads-0.fasta").read_text() == ""
+    assert (tmp_path / "shard-reads" / "reads-h0-0.fasta").read_text() == ""
     # the global strips/windows/'mean' paths, the fallback geometry and
     # the device consensus are ported: these construct
     for opts, fast in ((dict(assembly_mode="mean"), None),

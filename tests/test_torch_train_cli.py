@@ -7,7 +7,8 @@ val loss below 0.7× that of the seed-0 init, as
 JAX CLI's final lines; and ``--export-npz`` writes weights that the JAX
 package's ``load_params_npz`` reads as the trained parameters and that
 both packages' ``load_basecaller`` basecall to the same strings.  Without
-a card the CUDA default raises, the multi-device flags raise, and a
+a card the CUDA default raises, --mesh-model above 1 and a
+--mesh-data other than the process group raise, and a
 failed build of the shard parser raises.  ``torch`` and the port are
 imported inside the tests (see ``tests/torch_one_cpu.py``).
 """
@@ -131,13 +132,21 @@ def test_no_fallback(tmp_path, monkeypatch):
             Trainer()
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(["-s", str(tmp_path)])
-    for flags in (["--num-processes", "2"], ["--coordinator", "h:1"],
-                  ["--process-id", "1"], ["--mesh-data", "2"],
-                  ["--mesh-model", "2"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cli.main(["-s", str(tmp_path), "--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # multi-process training is ported (tests/test_torch_ddp.py,
+    # test_torch_train_cli_multiproc.py); tensor parallelism is not, and
+    # a data axis other than the process group is refused
+    with pytest.raises(NotImplementedError, match="item 11"):
+        cli.main(["-s", str(tmp_path), "--device", "cpu",
+                  "--mesh-model", "2"])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Trainer(train_config=TrainConfig(mesh_model=2, device="cpu"))
+    with pytest.raises(ValueError, match="one process per GPU"):
+        cli.main(["-s", str(tmp_path), "--device", "cpu", "--mesh-data", "2"])
+    with pytest.raises(ValueError, match="one process per GPU"):
         Trainer(train_config=TrainConfig(mesh_data=2, device="cpu"))
+    with pytest.raises(ValueError, match="process_id"):
+        cli.main(["-s", str(tmp_path), "--device", "cpu",
+                  "--num-processes", "2"])
 
     # a failed build of csrc/tfrecord.cc raises; nothing falls back to
     # the Python codec
