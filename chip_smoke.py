@@ -9,8 +9,9 @@ mode (the reference's --decode-type chunk) and chunk_lm (the tiled,
 LM-fused chunk decode), the global strips / windows / 'mean' forwards
 and the fallback geometry, chunk mode with the device consensus,
 training (the training CLI at the default config's full width, on
-synthetic shards), and the multi-GPU paths (a mesh of two replicas,
-read sharding, data-parallel training in a process group) on the one
+synthetic shards), the multi-GPU paths (a mesh of two replicas, read
+sharding, data-parallel training in a process group) and tensor
+parallelism (the model split over a mesh's model axis) on the one
 card, and checks them:
 
   1. device   nvidia-smi name and power limit, torch's device name
@@ -89,11 +90,13 @@ card, and checks them:
               matrices within 1e-4 of the full-read forward's from row
               RF-1 on (the strips' first RF-1 rows differ by design, as in
               the JAX package: printed); card strings == CPU strings on
-              phase 4's reads for the three and the fallback geometry
-              (step 96, the windowed forward); the decode and backtrace
-              kernels bit-exact vs their plain versions on the 'mean'
-              batch (its first 16 rows, lengths clamped to 2,048 steps)
-              and the decode kernel timed on all of it
+              the first 2,000 samples of phase 4's reads (a 2,048-sample
+              bucket, which the plain CPU decoder runs far faster than
+              the 4,096-sample one) for the three and the fallback
+              geometry (step 96, the windowed forward); the decode and
+              backtrace kernels bit-exact vs their plain versions on the
+              'mean' batch (its first 16 rows, lengths clamped to 2,048
+              steps) and the decode kernel timed on all of it
   8b. consensus-device  chunk 'fused' with consensus='device': card
               strings == CPU strings on phase 4's reads (the card run
               with the launch counts set to 0); on phase 7's first batch
@@ -147,6 +150,24 @@ card, and checks them:
               5 + 3 (rank 1 padded with zero-weight filler), 3 steps:
               the ranks' parameters bit-equal, the 3 losses within 1e-5
               relative of 10c's steps without a group
+  11. tp      tensor parallelism, the model row on the one card: a.
+              Trainer(mesh=make_mesh(1, 2, [cuda:0, cuda:0])) at the
+              default config's full width (every conv and dense_relu
+              split in two), float32, cuDNN deterministic: phase 9c's 3
+              steps held against 10c's unsharded steps with 9c's gates
+              (first-step loss 1e-5 relative, gathered first-step
+              gradients 1e-3 of each leaf's largest, losses 1e-2), then
+              ms a step at batch 256, float32 and bfloat16, beside 9d's;
+              b. two gloo rank processes, each with a model row of two
+              on the card (a 2x2 grid), on 10d's 5 + 3 split: the ranks'
+              gathered parameters bit-equal, the losses held to 11a's
+              with 9c's gates (first step 1e-5, all 1e-2); c. 11a's
+              export (the full leaves, equal to the gathered ones)
+              basecalls phase 4's reads through the
+              decode and backtrace kernels, each launched once a batch
+              (counts set to 0 just before), and Basecaller(mesh=
+              make_mesh(2, 2, [cuda:0] * 4)) gives phase 5's strings on
+              them, the kernels launched once a data slice
 
 Each phase prints its seconds ("[phase-time] step=...").
 
@@ -201,6 +222,10 @@ CARD_VS_CPU_LOSS_RTOL = 1e-2
 # log-softmax at batch 256, T 1,024: entries are at most 1, but both sides
 # carry the loss (~500) in float32 (spacing 6e-5) through their exps
 CTC_GRAD_ATOL = 1e-3
+# phase 8's card vs CPU strings: the first samples of phase 4's reads,
+# in a 2,048-sample bucket; the plain CPU decoder's time on a bucket
+# grows faster than its length, and this cut pays for phase 11
+PREP_CHECK_SAMPLES = 2000
 # bytes of one LM row lookup, by (packed, bf16): dense probs + entropy;
 # packed l1 (word, rank) + vals row
 ROW_BYTES = {(False, False): 20, (False, True): 10, (True, False): 28,
@@ -931,8 +956,9 @@ def global_prep(dev, reads, small, opts) -> dict:
     """Phase 8: the global 'strips', 'windows' and 'mean' forwards on
     phase 5's reads, each split per batch (the warm-up) then timed with
     the launch counts set to 0; their first batch's matrices against the
-    full-read forward's; card vs CPU strings on phase 4's reads for the
-    three and the fallback geometry (step 96); the decode and backtrace
+    full-read forward's; card vs CPU strings on the first
+    PREP_CHECK_SAMPLES samples of phase 4's reads for the three and the
+    fallback geometry (step 96); the decode and backtrace
     kernels vs their plain versions on the 'mean' batch.  Returns the
     'mean' run's counts."""
     import dataclasses
@@ -986,19 +1012,22 @@ def global_prep(dev, reads, small, opts) -> dict:
         del bc, mats
     del ref
 
+    head = [x[:PREP_CHECK_SAMPLES] for x in small]
     for name, kw in (("strips", dict(prep_mode="strips")),
                      ("windows", dict(prep_mode="windows")),
                      ("mean", dict(assembly_mode="mean")),
                      ("step96", dict(step_size=96))):
-        small_opts = dataclasses.replace(opts, read_batch=4, **kw)
+        small_opts = dataclasses.replace(opts, read_batch=4,
+                                         bucket_quantum=2048, **kw)
         want = load_basecaller(TRAINED, options=small_opts,
-                               device="cpu").basecall_signals(small)
+                               device="cpu").basecall_signals(head)
         got = load_basecaller(TRAINED, options=small_opts,
-                              device=dev).basecall_signals(small)
+                              device=dev).basecall_signals(head)
         same = sum(a == b for a, b in zip(got, want))
-        _line("global-prep-check", path=name, reads=len(small),
-              identical_to_cpu=same, lengths=[len(x) for x in got])
-        if same != len(small):
+        _line("global-prep-check", path=name, reads=len(head),
+              samples=PREP_CHECK_SAMPLES, identical_to_cpu=same,
+              lengths=[len(x) for x in got])
+        if same != len(head):
             _fail(f"global {name}: card strings differ from the port's CPU "
                   "run")
 
@@ -1723,6 +1752,221 @@ def ddp_rank_main(rank: int, tmp: Path, device: str) -> int:
     return 0
 
 
+# phase 11b: two ranks with a model row each against one process's
+# sharded steps (11a), both cuDNN deterministic, held to phase 9c's
+# gates (the first step's loss FIRST_STEP_LOSS_RTOL, every loss
+# CARD_VS_CPU_LOSS_RTOL): the ranks' partial gradient sums round apart,
+# and Adam's sign-like first updates amplify that, as in 9c.  Measured
+# on the card (H100 80GB HBM3, 700 W): steps 1-2 equal, step 3 1.35e-5
+# apart, where 10d's unsharded ranks stayed within 1.1e-7
+
+
+def _grad_rel(got: dict, want: dict) -> float:
+    """The largest gradient difference, each leaf's over its largest."""
+    return max(float((got[k] - v).abs().max() / v.abs().max())
+               for k, v in want.items())
+
+
+def tensor_parallel(dev, batches, want_losses, small, small_want,
+                    step_ms_9d: dict, tmp: Path) -> dict:
+    """Phase 11 (see the module docstring, a-c).  Returns the numbers of
+    the "train" line's "tensor_parallel" entry and the decode kernels'
+    launches in 11c."""
+    import torch
+
+    from radian_tpu_torch.config import default_config
+    from radian_tpu_torch.models.checkpoint import (
+        gather_params,
+        leaf_name,
+        load_params_npz,
+        params_to_flax,
+        save_params_npz,
+    )
+    from radian_tpu_torch.parallel import make_mesh
+    from radian_tpu_torch.pipeline import BasecallOptions, load_basecaller
+    from radian_tpu_torch.train.trainer import TrainConfig, Trainer
+    from radian_tpu_torch.utils.synthetic import kmer_level_table, synth_windows
+
+    out = {}
+    mesh = make_mesh(1, 2, [dev, dev])
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # 11a. 3 steps of phase 9c's batches against 10c's unsharded ones
+        grads = {}
+        for name, m in (("whole", None), ("tp", mesh)):
+            tr = Trainer(default_config(), TrainConfig(
+                checkpoint_dir=None, device=str(dev)), mesh=m)
+            g = torch.autograd.grad(tr.loss(tr._put_batch(batches[0])),
+                                    list(tr.params.values()))
+            grads[name] = gather_params(dict(zip(tr.params, g)), "cpu")
+        split = sorted({leaf_name(k)[0] for k in tr.params
+                        if leaf_name(k)[1] is not None})
+        n_split = sum(v.numel() for k, v in gather_params(tr.params).items()
+                      if k in split)
+        losses = np.asarray([float(tr.train_step(tr._put_batch(b)))
+                             for b in batches])
+    finally:
+        torch.backends.cudnn.deterministic = det
+    rel = np.abs(losses - want_losses) / np.abs(want_losses)
+    grad_rel = _grad_rel(grads["tp"], grads["whole"])
+    _line("tp-steps", mesh="1x2", devices=[str(d) for d in tr.row],
+          split_leaves=len(split), split_params=n_split,
+          losses=[float(x) for x in losses],
+          unsharded_losses=[float(x) for x in want_losses],
+          rel_loss_diff=[f"{x:.3e}" for x in rel],
+          first_step_grad_rel_diff=f"{grad_rel:.3e}")
+    if len(split) != 28 or n_split != 2_199_936:
+        _fail(f"tp: {len(split)} leaves ({n_split} parameters) split, 28 "
+              "(2,199,936) expected")
+    if not (rel[0] <= FIRST_STEP_LOSS_RTOL and grad_rel <= FIRST_STEP_GRAD_RTOL
+            and rel.max() <= CARD_VS_CPU_LOSS_RTOL):
+        _fail(f"tp: the sharded steps differ from the unsharded ones: "
+              f"losses {rel} relative, first-step gradients {grad_rel}")
+    out.update(losses=losses.tolist(), rel_loss_diff=rel.tolist(),
+               first_step_grad_rel_diff=grad_rel, split_params=n_split)
+
+    # 11c. the export: the full leaves, through the decode kernels
+    npz = tmp / "tp.npz"
+    save_params_npz(tr.model, npz)
+    flat, gathered = load_params_npz(npz), params_to_flax(tr.model)
+    export_equal = flat.keys() == gathered.keys() and all(
+        np.array_equal(v, gathered[k]) for k, v in flat.items())
+    opts = BasecallOptions(beam_width=6, read_batch=4, bucket_quantum=4096)
+    bc = load_basecaller(npz, options=opts, device=dev)
+    zero_launches()
+    got = bc.basecall_signals(small)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n_batches = len(bc.batches(small))
+    _line("tp-export", export_equals_gathered=export_equal,
+          reads=len(small), batches=n_batches, lengths=[len(x) for x in got],
+          launches=json.dumps(launches, separators=(",", ":")))
+    if not export_equal:
+        _fail("tp: the export is not the gathered parameters")
+    if (launches["beam_decode"] != n_batches
+            or launches["beam_backtrace"] != n_batches
+            or launches["beam_decode_lm"] or not all(got)):
+        _fail(f"tp: the export did not basecall through the decode "
+              f"kernels once a batch: {launches}, lengths "
+              f"{[len(x) for x in got]}")
+    out["basecall_launches"] = launches
+    mesh22 = make_mesh(2, 2, [dev] * 4)
+    bc = load_basecaller(TRAINED, options=opts, mesh=mesh22, device=dev)
+    zero_launches()
+    got = bc.basecall_signals(small)
+    torch.cuda.synchronize()
+    n = read_launches()
+    slices = 2 * len(bc.batches(small))
+    same = sum(a == b for a, b in zip(got, small_want))
+    _line("tp-mesh", mesh="2x2", replicas=len(bc._replicas), reads=len(small),
+          identical_to_phase5=same, slices=slices,
+          launches=json.dumps(n, separators=(",", ":")))
+    if same != len(small):
+        _fail("tp: the 2x2 mesh's strings differ from phase 5's")
+    if n["beam_decode"] != slices or n["beam_backtrace"] != slices:
+        _fail(f"tp: a 2x2 mesh slice did not launch its kernels: {n}")
+    out["mesh_2x2"] = {"identical": same, "launches": n}
+    del bc
+
+    # 11a. ms a step at batch 256 beside 9d's
+    rng = np.random.default_rng(11)
+    b = synth_windows(rng, 256, window=1024, levels=kmer_level_table(rng),
+                      dwell_mean=40.0, dwell_std=8.0)
+    for dtype in ("float32", "bfloat16"):
+        del tr
+        torch.cuda.empty_cache()
+        tr = Trainer(default_config(), TrainConfig(
+            checkpoint_dir=None, device=str(dev), compute_dtype=dtype),
+            mesh=mesh)
+        batch = tr._put_batch(b)
+        for _ in range(3):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        n_steps = 10
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        tr_split = _train_split(tr, batch, 3)
+        _line("tp-throughput", mesh="1x2", dtype=dtype, batch=256,
+              ms_per_step=f"{step_ms:.2f}",
+              phase9d_ms_per_step=f"{step_ms_9d[dtype]:.2f}",
+              **{f"{k}_ms": f"{v:.2f}" for k, v in tr_split.items()})
+        out[f"throughput_{dtype}"] = {
+            "ms_per_step": step_ms, "phase9d_ms_per_step": step_ms_9d[dtype],
+            "split_ms": tr_split}
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    # 11b. two ranks, a model row each
+    (tmp / "b").mkdir()
+    np.savez(tmp / "b" / "batches.npz", **{f"{s}/{k}": v
+                                           for s, b in enumerate(batches)
+                                           for k, v in b.items()})
+    outs = rank_processes("--tp-rank", tmp / "b", dev)
+    params = [np.load(tmp / "b" / f"rank{r}.npz") for r in range(2)]
+    equal = all(np.array_equal(params[0][k], params[1][k])
+                for k in params[0].files)
+    got = np.asarray(outs[0]["losses"])
+    rel = np.abs(got - losses) / np.abs(losses)
+    _line("tp-two-ranks", backend="gloo", mesh="2x2",
+          rows=[o["row"] for o in outs], params_bit_equal=equal,
+          losses=[float(x) for x in got],
+          rel_loss_diff_vs_11a=[f"{x:.3e}" for x in rel],
+          seconds=[round(o["seconds"], 1) for o in outs])
+    if not equal or outs[0]["losses"] != outs[1]["losses"]:
+        _fail("tp: the two ranks' parameters or losses differ")
+    if not (rel[0] <= FIRST_STEP_LOSS_RTOL
+            and rel.max() <= CARD_VS_CPU_LOSS_RTOL):
+        _fail(f"tp: two ranks' losses differ from one process's by {rel} "
+              f"relative (first step > {FIRST_STEP_LOSS_RTOL} or any > "
+              f"{CARD_VS_CPU_LOSS_RTOL})")
+    out["two_ranks"] = {"params_bit_equal": equal,
+                        "rel_loss_diff": rel.tolist()}
+    return out
+
+
+def tp_rank_main(rank: int, tmp: Path, device: str) -> int:
+    """One rank of phase 11b (``chip_smoke.py --tp-rank R DIR cuda``): a
+    model row of two on the one card, 10d's split."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from radian_tpu_torch.config import default_config
+    from radian_tpu_torch.models.checkpoint import params_to_flax
+    from radian_tpu_torch.parallel import make_mesh
+    from radian_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    # gloo: NCCL refuses two ranks on one card
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'gloo'}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    torch.backends.cudnn.deterministic = True
+    cfg = default_config()
+    cfg.train.batch_size = DDP_SPLIT
+    tr = Trainer(cfg, TrainConfig(checkpoint_dir=None),
+                 mesh=make_mesh(2, 2, [device] * 4))
+    data = np.load(tmp / "batches.npz")
+    rows = slice(0, DDP_SPLIT) if rank == 0 else slice(DDP_SPLIT, None)
+    losses = []
+    for s in range(len({k.split("/")[0] for k in data})):
+        local = {k.split("/")[1]: data[k][rows] for k in data
+                 if k.startswith(f"{s}/")}
+        losses.append(float(tr.train_step(tr._put_batch(local))))
+    np.savez(tmp / f"rank{rank}.npz", **params_to_flax(tr.model))
+    print(json.dumps({"rank": tr.rank, "world": tr.world, "losses": losses,
+                      "row": [str(d) for d in tr.row],
+                      "seconds": time.perf_counter() - t0}))
+    dist.destroy_process_group()
+    return 0
+
+
 def synth_signals(rng, lengths, levels):
     from radian_tpu_torch.utils.synthetic import synth_read
 
@@ -2018,6 +2262,15 @@ def main() -> int:
                         "two_ranks_gloo": two_ranks(dev, batches,
                                                     group_losses, tmp / "d")}
         phase_done("10d")
+
+        # 11. tensor parallelism on the one card ----------------------------
+        (tmp / "tp").mkdir()
+        tp = tensor_parallel(
+            dev, batches, group_losses, small, small_seqs,
+            {k: train[f"throughput_{k}"]["ms_per_step"]
+             for k in ("float32", "bfloat16")}, tmp / "tp")
+        train["tensor_parallel"] = tp
+        phase_done("11")
     kernels = [
         {"name": "beam_decode", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",
@@ -2026,7 +2279,8 @@ def main() -> int:
          "ms": dec_ms, "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
          "bound_by": dec_by, "library_ms": None, "chunk": ck["decode"],
          "train_launches": train["basecall_launches"]["beam_decode"],
-         "mesh_launches": mesh["launches"]["beam_decode"]},
+         "mesh_launches": mesh["launches"]["beam_decode"],
+         "tp_launches": tp["basecall_launches"]["beam_decode"]},
         {"name": "beam_backtrace", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",
          "replaces": "radian_tpu/ops/beam_search.py:420",
@@ -2034,7 +2288,8 @@ def main() -> int:
          "ms": bt_ms, "plain_ms": bt_plain_ms, "bound_ms": bt_bound,
          "bound_by": bt_by, "library_ms": None, "chunk": ck["backtrace"],
          "train_launches": train["basecall_launches"]["beam_backtrace"],
-         "mesh_launches": mesh["launches"]["beam_backtrace"]},
+         "mesh_launches": mesh["launches"]["beam_backtrace"],
+         "tp_launches": tp["basecall_launches"]["beam_backtrace"]},
         {"name": "beam_decode_lm", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search_lm.cu",
          "replaces": "radian_tpu/ops/beam_search.py:176",
@@ -2045,7 +2300,8 @@ def main() -> int:
          "bound_by": lmk["dense", "f32"]["bound_by"], "library_ms": None,
          "chunk": ck["decode_lm"],
          "train_launches": train["basecall_launches"]["beam_decode_lm"],
-         "mesh_launches": mesh["launches"]["beam_decode_lm"]},
+         "mesh_launches": mesh["launches"]["beam_decode_lm"],
+         "tp_launches": tp["basecall_launches"]["beam_decode_lm"]},
     ]
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"train": train}))
@@ -2061,6 +2317,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:  # one rank of phase 10d
         sys.exit(ddp_rank_main(int(sys.argv[2]), Path(sys.argv[3]),
                                sys.argv[4]))
+    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase 11b
+        sys.exit(tp_rank_main(int(sys.argv[2]), Path(sys.argv[3]),
+                              sys.argv[4]))
     if sys.argv[1:2] == ["--shard-rank"]:  # one rank of phase 10b
         sys.exit(shard_rank_main(int(sys.argv[2]), Path(sys.argv[3]),
                                  sys.argv[4]))

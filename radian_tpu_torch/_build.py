@@ -52,6 +52,7 @@ _SIGNATURES = {
     "seqmatch": {
         "LongestBlock": ([_P, _L, _P, _L, _P], None),
         "AssembleFragments": ([_P, _P, _L, _P], _L),
+        "AssembleRead": ([_P, _L, _L, _P], _L),
         "AssembleRead2": ([_P, _P, _L, _L, _P], _L),
     },
     "beamsearch": {

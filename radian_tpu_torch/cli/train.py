@@ -18,8 +18,13 @@ Data-parallel training runs one process per GPU: start each with
 flags; ``--device cpu`` trains over gloo on the CPU.  Each process reads
 its share of the train shards (``host_shard_files``) with data seed
 ``seed + rank``; rank 0 writes the checkpoints, logs and export.
-``--mesh-model`` above 1 (tensor parallelism) raises
-``NotImplementedError`` (ROADMAP.md, Queue 1 item 11).
+
+``--mesh-model M`` splits the model over M devices of each process
+(tensor parallelism, ``models/tensor_parallel.py``): the process with
+local rank ``r`` takes ``cuda:(r·M + j) mod device count`` for ``j <
+M`` (``parallel.model_row_devices``), ``--device cpu`` M CPU devices.
+The data seed and the train files stay per process: one process is one
+data index.  Checkpoints and ``--export-npz`` hold the full leaves.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--log-dir", default="logs")
     p.add_argument("--mesh-data", type=int, default=None)
-    p.add_argument("--mesh-model", type=int, default=1)
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="devices each process splits the model over "
+                        "(tensor parallelism)")
     p.add_argument("--max-label", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--coordinator", default=None)

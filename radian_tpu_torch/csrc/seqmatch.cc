@@ -213,6 +213,38 @@ long AssembleFragments(const uint8_t* data, const long* offsets,
   return length;
 }
 
+// Whole-read chunk consensus straight from compacted nibble-packed label
+// rows (ops/beam_search.py pack_labels of front-compacted emissions):
+// byte j of a window row holds labels 2j (low nibble) and 2j+1 (high),
+// each stored as label+1 with 0 = the -1 padding that only appears after
+// the last emission.  Renders each window's fragment (decoder order =
+// reversed emission order, see rows_to_seqs) and runs AssembleFragments'
+// consensus loop — one native call per read.
+long AssembleRead(const uint8_t* packed, long n_wins, long bytes_per_win,
+                  uint8_t* out) {
+  if (n_wins <= 0) return 0;
+  long max_lab = bytes_per_win * 2;
+  std::vector<uint8_t> frags(n_wins * max_lab);
+  std::vector<long> offsets(n_wins + 1, 0);
+  long total = 0;
+  std::vector<uint8_t> tmp(max_lab);
+  for (long w = 0; w < n_wins; ++w) {
+    const uint8_t* row = packed + w * bytes_per_win;
+    long m = 0;
+    for (long j = 0; j < bytes_per_win; ++j) {
+      uint8_t lo = row[j] & 15, hi = row[j] >> 4;
+      if (!lo) break;
+      tmp[m++] = lo - 1;
+      if (!hi) break;
+      tmp[m++] = hi - 1;
+    }
+    for (long i = 0; i < m; ++i) frags[total + i] = tmp[m - 1 - i];
+    total += m;
+    offsets[w + 1] = total;
+  }
+  return AssembleFragments(frags.data(), offsets.data(), n_wins, out);
+}
+
 // Whole-read chunk consensus straight from the device's compacted
 // 2-bit-packed label rows (ops/beam_search.py pack_labels2 of
 // front-compacted emissions): labels 0..3 four per byte, lowest bits

@@ -8,6 +8,11 @@ dense kernels ``[in, out]`` → ``[out, in]``, biases unchanged.
 :func:`params_to_flax` is its inverse, and :func:`save_params_npz` writes
 the npz the JAX package's ``load_params_npz`` (and this package's
 ``load_basecaller``) reads.
+
+A tensor-parallel model (``models/tensor_parallel.py``) keeps shard ``j``
+of a split leaf ``name`` under ``name.j``; :func:`gather_params` joins
+the shards into the full leaves (so a sharded model exports the same npz
+as an unsharded one) and :func:`split_params` splits full leaves back.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ _SHORTCUT = re.compile(r"tcn/block(\d+)/shortcut/(kernel|bias)")
 _DENSE = re.compile(r"(dense_relu|dense_out)/(kernel|bias)")
 _TORCH = re.compile(r"tcn\.blocks\.(\d+)\.(conv0|conv1|shortcut)\.(weight|bias)"
                     r"|(dense_relu|dense_out)\.(weight|bias)")
+_SHARD = re.compile(r"(.+\.(?:weight|bias))\.(\d+)")
 
 
 def load_params_npz(path: str | Path) -> dict[str, np.ndarray]:
@@ -95,13 +101,57 @@ def flax_name(name: str) -> str:
     return f"{m[4]}/{'kernel' if m[5] == 'weight' else 'bias'}"
 
 
+def leaf_name(key: str) -> tuple[str, int | None]:
+    """``(leaf, shard)`` of a parameter key: ``name.j`` is shard ``j`` of
+    the leaf ``name``; any other key is a whole leaf (shard ``None``)."""
+    m = _SHARD.fullmatch(key)
+    return (m[1], int(m[2])) if m else (key, None)
+
+
+def gather_params(named, device=None) -> dict[str, torch.Tensor]:
+    """``{key: tensor}`` whose keys may be shards → ``{leaf: full
+    tensor}``: each split leaf's shards joined along dimension 0 in shard
+    order on ``device`` (by default its first shard's), a whole leaf
+    moved there; detached from autograd.  Unsharded keys pass through."""
+    parts: dict[str, list] = {}
+    for key, t in named.items():
+        name, j = leaf_name(key)
+        parts.setdefault(name, []).append((j or 0, t))
+    out = {}
+    for name, shards in parts.items():
+        shards.sort(key=lambda p: p[0])
+        dev = shards[0][1].device if device is None else device
+        ts = [t.detach().to(dev) for _, t in shards]
+        out[name] = ts[0] if len(ts) == 1 else torch.cat(ts)
+    return out
+
+
+def split_params(full, like) -> dict[str, torch.Tensor]:
+    """Full leaves ``{leaf: tensor}`` → ``{key: tensor}`` keyed and
+    placed as ``like`` (a sharded or whole model's parameters, or
+    anything keyed as they are): shard ``j`` of ``M`` is the ``j``-th
+    equal slice of its leaf along dimension 0, each a copy on its
+    ``like`` tensor's device."""
+    counts: dict[str, int] = {}
+    for key in like:
+        name, _ = leaf_name(key)
+        counts[name] = counts.get(name, 0) + 1
+    out = {}
+    for key, t in like.items():
+        name, j = leaf_name(key)
+        v = full[name] if j is None else full[name].chunk(counts[name])[j]
+        out[key] = v.to(t.device, copy=True)
+    return out
+
+
 def tensors_to_flax(named) -> dict[str, np.ndarray]:
     """``{state_dict key: tensor}`` (parameters, or anything shaped like
-    them, such as optimizer moments) → flax-layout ``{flax path: float32
-    array}``: conv kernels ``[Cout, Cin, K]`` → ``[K, Cin, Cout]``, dense
-    kernels transposed, biases unchanged."""
+    them, such as optimizer moments; shards are gathered first) →
+    flax-layout ``{flax path: float32 array}``: conv kernels ``[Cout,
+    Cin, K]`` → ``[K, Cin, Cout]``, dense kernels transposed, biases
+    unchanged."""
     out = {}
-    for name, t in named.items():
+    for name, t in gather_params(named, "cpu").items():
         a = t.detach().to("cpu", torch.float32).numpy()
         if a.ndim > 1:
             a = a.transpose(2, 1, 0) if a.ndim == 3 else a.T

@@ -81,13 +81,26 @@ class SigToSeq(nn.Module):
         return torch.log_softmax(logits, dim=-1)
 
 
-def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
-    """``layer`` in ``dtype``; in bfloat16 the product is rounded before
-    its bias is added, as flax's ``nn.Dense`` does."""
-    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
-    if dtype == torch.float32:
-        return F.linear(x, w, b)
-    return F.linear(x, w) + b
+def _dense(x: torch.Tensor, layer: nn.Module, dtype: torch.dtype):
+    """``layer`` in ``dtype``: an ``nn.Linear``, or its column-parallel
+    form (``models/tensor_parallel.py``), which computes in ``x``'s dtype
+    (``forward`` passes ``x`` in ``dtype``)."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x)
+    return dense(x.to(dtype), layer.weight, layer.bias)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: torch.Tensor | None) -> torch.Tensor:
+    """``x @ weight.T + bias`` in ``x``'s dtype (``bias`` ``None``: none);
+    in bfloat16 the product is rounded before its bias is added, as
+    flax's ``nn.Dense`` does."""
+    w = weight.to(x.dtype)
+    if bias is None:
+        return F.linear(x, w)
+    if x.dtype == torch.float32:
+        return F.linear(x, w, bias)
+    return F.linear(x, w) + bias.to(x.dtype)
 
 
 def build_model(config: DotDict | None = None,

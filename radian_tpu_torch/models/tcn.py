@@ -37,20 +37,28 @@ class CausalConv1D(nn.Module):
         if padding != "causal":
             raise NotImplementedError(
                 f"padding={padding!r}: only 'causal' is ported")
-        self.kernel_size = kernel_size
         self.dilation = dilation
         self.weight = nn.Parameter(
             torch.empty(features, in_channels, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        x = F.pad(x, ((self.kernel_size - 1) * self.dilation, 0))
-        w = self.weight.to(x.dtype)
-        if x.dtype == torch.float32:
-            return F.conv1d(x, w, self.bias, dilation=self.dilation)
-        # flax rounds a bfloat16 convolution before adding its bias
-        return (F.conv1d(x, w, None, dilation=self.dilation)
-                + self.bias.to(x.dtype)[:, None])
+        return causal_conv1d(x, self.weight, self.bias, self.dilation)
+
+
+def causal_conv1d(x: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor | None, dilation: int) -> torch.Tensor:
+    """``[N, C_in, T]`` → ``[N, C_out, T]``: ``weight`` ``[C_out, C_in,
+    k]`` over ``x`` padded ``(k-1)·dilation`` on the left, in ``x``'s
+    dtype, plus ``bias`` (``None``: none)."""
+    x = F.pad(x, ((weight.shape[-1] - 1) * dilation, 0))
+    w = weight.to(x.dtype)
+    if bias is None:
+        return F.conv1d(x, w, None, dilation=dilation)
+    if x.dtype == torch.float32:
+        return F.conv1d(x, w, bias, dilation=dilation)
+    # flax rounds a bfloat16 convolution before adding its bias
+    return F.conv1d(x, w, None, dilation=dilation) + bias.to(x.dtype)[:, None]
 
 
 class ResidualBlock(nn.Module):

@@ -111,6 +111,19 @@ def assemble_fragments(fragments: list[str], native: bool = True) -> str:
     return _decode(out, n)
 
 
+def assemble_read_packed(packed_rows: np.ndarray) -> str:
+    """Consensus straight from a read's nibble-packed label rows
+    (``pack_labels`` of front-compacted emissions, ``[n_wins,
+    bytes_per_win]`` uint8; a 0 nibble ends a row): the fragments are
+    rendered and stitched in one C++ call (``AssembleRead``).  Equal to
+    ``assemble_fragments(rows_to_seqs(unpack_labels(rows)))``."""
+    rows = np.ascontiguousarray(packed_rows, np.uint8)
+    n_wins, bpw = rows.shape
+    out = ctypes.create_string_buffer(n_wins * bpw * 2 + bpw * 2 + 1)
+    n = _lib().AssembleRead(rows.ctypes.data, n_wins, bpw, out)
+    return _decode(out, n)
+
+
 def assemble_read_packed2(packed_rows: np.ndarray, n_lab: np.ndarray) -> str:
     """Consensus straight from a read's 2-bit-packed label rows
     (``pack_labels2``, ``[n_wins, bytes_per_win]`` uint8) and their

@@ -6,11 +6,11 @@ the JAX package's axis names.  Inference shards each read batch's rows
 over the ``data`` axis in one process (``Basecaller(mesh=...)``), one
 model replica on each device, exactly as the JAX package's
 ``shard_map`` does: reads are independent, so no collective runs.
-Training shards over processes instead, one GPU each
-(``parallel/distributed.py``).
-
-The ``model`` axis (tensor parallelism: ``param_shardings``) is not
-ported (ROADMAP.md, Queue 1 item 11); a mesh may name it, at size 1.
+Training shards the data axis over processes instead, one row of the
+mesh each (``parallel/distributed.py``), and the ``model`` axis inside
+the process: ``param_shardings`` is the JAX package's tensor-parallel
+rule, and ``models/tensor_parallel.py`` splits a model's layers over
+the process's model row (``Mesh.model_row``).
 """
 
 from __future__ import annotations
@@ -44,8 +44,17 @@ class Mesh:
 
     def data_devices(self) -> list[torch.device]:
         """One device per ``data`` index: the first of each model row."""
+        return [row[0] for row in self._rows()]
+
+    def model_row(self, index: int = 0) -> list[torch.device]:
+        """The devices of data index ``index``, in ``model`` order: one
+        process's share of a training mesh, over which its sharded layers
+        split (``models/tensor_parallel.py``)."""
+        return self._rows()[index]
+
+    def _rows(self) -> list[list[torch.device]]:
         grid = np.moveaxis(self.devices, self.axis_names.index("data"), 0)
-        return [row.flat[0] for row in grid]
+        return [list(row.flat) for row in grid]
 
 
 def make_mesh(data: int | None = None, model: int = 1,
@@ -103,9 +112,40 @@ def replicated_sharding(mesh: Mesh) -> list[torch.device]:
     return mesh.data_devices()
 
 
-def param_shardings(params, mesh: Mesh):
-    """Tensor-parallel parameter shardings: not ported."""
-    raise NotImplementedError(
-        "param_shardings (tensor parallelism over the 'model' axis) is not "
-        "ported to radian_tpu_torch yet (ROADMAP.md, Queue 1: item 11, "
-        "tensor parallelism)")
+def model_row_devices(device: torch.device, model: int) -> list[torch.device]:
+    """A process's ``model`` devices from its own ``device``: ``model``
+    copies of a CPU device; on CUDA ``cuda:(i·model + j) mod count`` for
+    ``j < model``, ``i`` being ``device``'s index (the process's local
+    rank once ``initialize`` has set it), so the rows of one host's
+    processes tile its cards."""
+    if device.type != "cuda":
+        return [device] * model
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", (device.index * model + j) % n)
+            for j in range(model)]
+
+
+def param_shardings(params, mesh: Mesh) -> dict[str, int | None]:
+    """The JAX package's tensor-parallel rule over the 'model' axis, leaf
+    for leaf: ``params`` is ``{flax path: array}`` in the flax layout
+    (``models/checkpoint.py::params_to_flax``).  A kernel (2-d or more,
+    ``kernel`` in its path) whose last dimension divides by the model
+    size ``M`` is split over it, and so is a 1-d ``bias`` that divides
+    and holds at least ``8·M`` entries; everything else is replicated,
+    as is every leaf at ``M`` 1.
+
+    Returns, for each path, the torch dimension split (0: the flax
+    layout's last is the first of a ``CausalConv1D`` weight ``[out, in,
+    k]``, of an ``nn.Linear`` weight ``[out, in]`` and of a bias) or
+    ``None`` for a replicated leaf."""
+    m = mesh.shape.get("model", 1)
+
+    def split(path: str, shape: tuple[int, ...]) -> int | None:
+        if m > 1 and shape and shape[-1] % m == 0:
+            if len(shape) >= 2 and "kernel" in path:
+                return 0
+            if len(shape) == 1 and "bias" in path and shape[-1] >= 8 * m:
+                return 0
+        return None
+
+    return {k: split(k, tuple(np.shape(v))) for k, v in params.items()}

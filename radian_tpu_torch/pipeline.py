@@ -197,12 +197,6 @@ class BasecallOptions:
     lm_table_dtype: str = "auto"  # 'auto' | 'float32' | 'bfloat16'
 
 
-def unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to radian_tpu_torch yet (ROADMAP.md, "
-        f"Queue 1: {item})")
-
-
 def resolve_device(device: str | torch.device) -> torch.device:
     """The device an entry point runs on, a bare ``cuda`` fixed to the
     current device (``cuda:<LOCAL_RANK>`` once a process group has set
@@ -536,6 +530,13 @@ class Basecaller:
     unsharded helpers (``forward``, ``decode``, ``chunk_*``) and the
     device consensus.  Without a mesh, the Basecaller is a mesh of one
     replica on ``device``.
+
+    A ``model`` axis above 1 is accepted, as in the JAX package, whose
+    ``shard_map`` keeps the parameters replicated and the batch split
+    over ``data`` only, so each device of a model row computes its data
+    slice again and keeps one copy.  Here the first device of each model
+    row (``Mesh.data_devices``) runs the slice, once: the same strings,
+    with none of the redundant copies (a deliberate deviation).
     """
 
     def __init__(
@@ -629,9 +630,6 @@ class Basecaller:
             raise ValueError(
                 f"read_batch {o.read_batch} must be divisible by the mesh "
                 f"data axis ({mesh.shape['data']})")
-        if mesh.shape.get("model", 1) != 1:
-            raise unported("a mesh 'model' axis above 1",
-                           "item 11, tensor parallelism")
         devices = replicated_sharding(mesh)
         if self.device not in devices:
             raise ValueError(f"device {self.device} is not among the mesh's "

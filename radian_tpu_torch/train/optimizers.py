@@ -27,6 +27,12 @@ the caller keeps, so a rebuilt rule (a new learning rate) continues from
 the same moments.  ``opt_state_to_optax`` / ``opt_state_from_optax``
 carry that state to and from optax's, as the list of its leaves in
 ``jax.tree.leaves`` order.
+
+The parameters may be a tensor-parallel model's (``models/
+tensor_parallel.py``): shard ``j`` of a leaf, ``name.j``, on its own
+device.  The update is elementwise and runs on each shard's device; the
+global norm sums each shard's squares once, in optax's order of the
+leaves; the optax bridge works on the full leaves.
 """
 
 from __future__ import annotations
@@ -40,7 +46,9 @@ import torch
 from radian_tpu_torch.config import DotDict
 from radian_tpu_torch.models.checkpoint import (
     flax_name,
+    leaf_name,
     params_from_flax,
+    split_params,
     tensors_to_flax,
 )
 
@@ -51,15 +59,6 @@ class OptState:
 
     count: int
     slots: dict[str, dict[str, torch.Tensor]]
-
-    def state_dict(self) -> dict:
-        return {"count": self.count, "slots": self.slots}
-
-    @classmethod
-    def from_state_dict(cls, d: dict, device) -> "OptState":
-        return cls(int(d["count"]),
-                   {s: {k: v.to(device) for k, v in b.items()}
-                    for s, b in d["slots"].items()})
 
 
 @dataclasses.dataclass
@@ -99,30 +98,31 @@ class Transform:
         names = _flax_order(params)
         g = {k: grads[k] for k in names}
         if self.clipnorm:
-            norm = torch.zeros((), device=next(iter(g.values())).device)
+            norm = torch.zeros((), device=g[names[0]].device)
             for k in names:  # optax sums the leaves' squares in tree order
-                norm = norm + (g[k] * g[k]).sum()
+                norm = norm + (g[k] * g[k]).sum().to(norm.device)
             norm = norm.sqrt()
-            keep = norm < self.clipnorm
-            g = {k: torch.where(keep, v, v / norm * self.clipnorm)
+            on = _per_device(lambda d: norm.to(d))
+            g = {k: torch.where(on(v.device) < self.clipnorm, v,
+                                v / on(v.device) * self.clipnorm)
                  for k, v in g.items()}
         elif self.clipvalue:
             g = {k: v.clamp(-self.clipvalue, self.clipvalue)
                  for k, v in g.items()}
         count = state.count + 1
         slots = {s: dict(b) for s, b in state.slots.items()}
-        if self.kind in ("adam", "amsgrad"):
-            # float32 corrections on the device: torch's CUDA division by
-            # a host scalar multiplies by its reciprocal instead
-            dev = next(iter(g.values())).device
-            bc1, bc2 = (torch.full((), float(np.float32(1) - np.float32(b)
-                                             ** np.float32(count)),
-                                   device=dev) for b in (self.b1, self.b2))
+        # float32 bias corrections on each device: torch's CUDA division
+        # by a host scalar multiplies by its reciprocal instead
+        corrections = _per_device(lambda d: [
+            torch.full((), float(np.float32(1) - np.float32(b)
+                                 ** np.float32(count)), device=d)
+            for b in (self.b1, self.b2)])
         step = -np.float32(self.lr(state.count) if callable(self.lr)
                            else self.lr)
         for k in names:
             gk = g[k]
             if self.kind in ("adam", "amsgrad"):
+                bc1, bc2 = corrections(gk.device)
                 mu = (1 - self.b1) * gk + self.b1 * slots["mu"][k]
                 nu = (1 - self.b2) * (gk * gk) + self.b2 * slots["nu"][k]
                 slots["mu"][k], slots["nu"][k] = mu, nu
@@ -146,10 +146,28 @@ class Transform:
         return OptState(count, slots)
 
 
+def _per_device(make: Callable[[torch.device], object]
+                ) -> Callable[[torch.device], object]:
+    """``make(device)``, made once a device."""
+    made: dict[torch.device, object] = {}
+
+    def get(device: torch.device):
+        if device not in made:
+            made[device] = make(device)
+        return made[device]
+
+    return get
+
+
 def _flax_order(params) -> list[str]:
-    """Parameter names in the order ``jax.tree.leaves`` visits their flax
-    paths (nested dict keys, sorted)."""
-    return sorted(params, key=lambda k: tuple(flax_name(k).split("/")))
+    """Parameter names in the order ``jax.tree.leaves`` visits their
+    leaves' flax paths (nested dict keys, sorted), a leaf's shards in
+    shard order."""
+    def key(k):
+        name, j = leaf_name(k)
+        return tuple(flax_name(name).split("/")), j or 0
+
+    return sorted(params, key=key)
 
 
 def build_optimizer(opt_config: DotDict,
@@ -218,16 +236,15 @@ def opt_state_to_optax(tx: Transform, state: OptState) -> list[np.ndarray]:
 
 def opt_state_from_optax(tx: Transform, leaves, params: dict[str, torch.Tensor]
                          ) -> OptState:
-    """The inverse of :func:`opt_state_to_optax`; buffers are put on the
-    device of ``params``, whose names they take."""
+    """The inverse of :func:`opt_state_to_optax`; buffers take the names
+    of ``params`` and their devices (split as they are split)."""
     leaves = list(leaves)
-    names = _flax_order(params)
-    dev = next(iter(params.values())).device
+    names = list(dict.fromkeys(leaf_name(k)[0] for k in _flax_order(params)))
     count = int(leaves.pop(0)) if tx.kind in ("adam", "amsgrad") else 0
     slots = {}
     for s in tx.slot_names:
         flat = {flax_name(k): np.asarray(leaves.pop(0)) for k in names}
-        slots[s] = {k: v.to(dev) for k, v in params_from_flax(flat).items()}
+        slots[s] = split_params(params_from_flax(flat), params)
     if callable(tx.lr):
         count = int(leaves.pop(0))
     if leaves:

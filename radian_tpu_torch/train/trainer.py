@@ -27,18 +27,30 @@ Three deliberate deviations from the JAX ``Trainer``:
 Data parallelism is one process per GPU, torch's idiom: inside a
 ``torch.distributed`` group (``parallel/distributed.py``) the data axis
 spans the group's processes, so ``mesh_data`` must be the world size
-(``None`` takes it).  The JAX package can also shard over several chips
-in one process; the port cannot (a deliberate deviation, ROADMAP.md
-Queue 3).  Each process contributes its whole local batch, padded with
-zero-weight filler rows to ``config.train.batch_size``, to a global
-batch; the loss is the JAX one over that global batch, ``Σ(w·loss) /
-max(Σw, 1)``: the weight sum is all-reduced first, each rank divides its
-own ``Σ(w·loss)`` by it, and the gradients are summed (not averaged, as
-DDP would, which is wrong wherever the ranks' weight sums differ).  Rank
-0's initial parameters are broadcast; the optimizer, its global-norm
-clip and its schedule then run the same on every rank.  Only rank 0
-writes checkpoints and logs; every rank restores.  Tensor parallelism
-(``mesh_model`` above 1) is not ported (ROADMAP.md, Queue 1 item 11).
+(``None`` takes it).  The JAX package can also shard the data axis over
+several chips in one process; the port cannot (a deliberate deviation,
+ROADMAP.md Queue 3).  Each process contributes its whole local batch,
+padded with zero-weight filler rows to ``config.train.batch_size``, to a
+global batch; the loss is the JAX one over that global batch,
+``Σ(w·loss) / max(Σw, 1)``: the weight sum is all-reduced first, each
+rank divides its own ``Σ(w·loss)`` by it, and the gradients are summed
+(not averaged, as DDP would, which is wrong wherever the ranks' weight
+sums differ).  Rank 0's initial parameters are broadcast; the optimizer,
+its global-norm clip and its schedule then run the same on every rank.
+Only rank 0 writes checkpoints and logs; every rank restores.
+
+Tensor parallelism (``mesh_model`` above 1, or a ``mesh`` with a
+``model`` axis) runs inside the process, as the JAX mesh has it: the
+process owns one model row of devices (its row of ``mesh``, or
+``parallel.model_row_devices`` of ``device``), the JAX
+``param_shardings`` rule splits the conv and dense layers over it
+(``models/tensor_parallel.py``), and the parameters and optimizer state
+stay split, each shard on its device.  The batch, the loss and every
+collective live on the row's first device: in a group, the gradients
+are gathered there for the one flat all-reduce and scattered back, so
+NCCL drives one device a process.  Checkpoints hold the full leaves and
+full optimizer slots, so a checkpoint written at one model size
+restores at another.
 """
 
 from __future__ import annotations
@@ -56,10 +68,22 @@ import torch
 import torch.distributed as dist
 
 from radian_tpu_torch.config import DotDict, default_config
+from radian_tpu_torch.models.checkpoint import (
+    gather_params,
+    params_to_flax,
+    split_params,
+)
 from radian_tpu_torch.models.sig2seq import build_model
+from radian_tpu_torch.models.tensor_parallel import shard_model
 from radian_tpu_torch.ops.ctc import ctc_loss
 from radian_tpu_torch.ops.greedy import batch_mean_edit_distance
-from radian_tpu_torch.pipeline import resolve_device, unported
+from radian_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    model_row_devices,
+    param_shardings,
+)
+from radian_tpu_torch.pipeline import resolve_device
 from radian_tpu_torch.train.optimizers import OptState, build_optimizer
 from radian_tpu_torch.utils.tensorboard import EventWriter
 
@@ -85,8 +109,14 @@ class TrainConfig:
 
 
 class Trainer:
+    """``mesh``, as in the JAX package, wins over ``mesh_data`` and
+    ``mesh_model``: its data axis is the process group (its size, or 1
+    when each process passes its own row), and this process trains on
+    its row of the model axis (row ``rank``, or the one row)."""
+
     def __init__(self, config: DotDict | None = None,
-                 train_config: TrainConfig | None = None):
+                 train_config: TrainConfig | None = None,
+                 mesh: Mesh | None = None):
         # a copy: update_learning_rate rewrites the optimizer config
         self.config = (config if config is not None
                        else default_config()).copy()
@@ -95,32 +125,45 @@ class Trainer:
         self.grouped = dist.is_initialized()
         self.world = dist.get_world_size() if self.grouped else 1
         self.rank = dist.get_rank() if self.grouped else 0
-        if self.tcfg.mesh_model != 1:
-            raise unported("mesh_model above 1",
-                           "item 11, tensor parallelism")
-        if self.tcfg.mesh_data not in (None, self.world):
+        if mesh is None:
+            if self.tcfg.mesh_data not in (None, self.world):
+                raise ValueError(
+                    f"mesh_data={self.tcfg.mesh_data} in a group of "
+                    f"{self.world} process(es): the data axis is the "
+                    "process group, one process per GPU; start mesh_data "
+                    "processes (the training CLI's --num-processes/"
+                    "--process-id/--coordinator, or torchrun)")
+            row = model_row_devices(resolve_device(self.tcfg.device),
+                                    self.tcfg.mesh_model)
+            mesh = make_mesh(1, len(row), row)
+        elif mesh.shape["data"] not in (1, self.world):
             raise ValueError(
-                f"mesh_data={self.tcfg.mesh_data} in a group of "
-                f"{self.world} process(es): the data axis is the process "
-                "group, one process per GPU; start mesh_data processes "
-                "(the training CLI's --num-processes/--process-id/"
-                "--coordinator, or torchrun)")
+                f"a mesh of {mesh.shape['data']} data rows in a group of "
+                f"{self.world} process(es): its data axis is the process "
+                "group (one row a process), or 1 (this process's own row)")
+        self.mesh = mesh
+        self.row = [resolve_device(d) for d in mesh.model_row(
+            self.rank if mesh.shape["data"] > 1 else 0)]
         if self.config.model.tcn.dropout_rate > 0.0:
             raise NotImplementedError(
                 f"dropout_rate={self.config.model.tcn.dropout_rate}: the "
                 "JAX Trainer cannot train with dropout (its train step "
                 "passes no 'dropout' rng), so the port does not either; "
                 "the model infers with it (a no-op at train=False)")
-        self.device = resolve_device(self.tcfg.device)
-        self.model = build_model(
+        # the batch, the loss and the collectives: the row's first device
+        self.device = self.row[0]
+        model = build_model(
             self.config, compute_dtype=_DTYPES[self.tcfg.compute_dtype])
-        self.model.reset_parameters(self.tcfg.seed)
-        self.model.to(self.device)
+        model.reset_parameters(self.tcfg.seed)
+        self.model = shard_model(
+            model, self.row, param_shardings(params_to_flax(model), mesh))
         self.params = dict(self.model.named_parameters())
         if self.grouped:
             with torch.no_grad():
                 for p in self.params.values():
-                    dist.broadcast(p, src=0)
+                    t = p.detach().to(self.device)
+                    dist.broadcast(t, src=0)
+                    p.copy_(t)
         self.tx = build_optimizer(self.config.train.opt)
         self.opt_state = self.tx.init(self.params)
         self.step = 0
@@ -172,15 +215,15 @@ class Trainer:
     def train_step(self, batch: dict) -> torch.Tensor:
         """One update on a device batch; returns the global batch's loss
         (on the device).  In a group, the gradients and the loss shares
-        are summed in one all-reduce."""
+        are summed in one all-reduce on the row's first device."""
         loss = self.loss(batch)
         grads = torch.autograd.grad(loss, list(self.params.values()))
         if self.grouped:
-            flat = torch.cat([*(g.reshape(-1) for g in grads),
-                              loss.detach().reshape(1)])
+            flat = torch.cat([*(g.to(self.device).reshape(-1)
+                                for g in grads), loss.detach().reshape(1)])
             dist.all_reduce(flat)
             loss = flat[-1]
-            grads = [part.view_as(g) for part, g in zip(
+            grads = [part.view_as(g).to(g.device) for part, g in zip(
                 flat[:-1].split([g.numel() for g in grads]), grads)]
         self.opt_state = self.tx.apply(
             self.params, dict(zip(self.params, grads)), self.opt_state)
@@ -195,12 +238,12 @@ class Trainer:
     # -- checkpointing ------------------------------------------------------
 
     def _payload(self, epoch: int, val_loss: float | None) -> dict:
-        state = self.opt_state.state_dict()
+        """The full leaves and full optimizer slots, on the CPU."""
         return {
-            "params": {k: v.detach().cpu() for k, v in self.params.items()},
-            "opt_state": {"count": state["count"], "slots": {
-                s: {k: v.cpu() for k, v in b.items()}
-                for s, b in state["slots"].items()}},
+            "params": gather_params(self.params, "cpu"),
+            "opt_state": {"count": self.opt_state.count, "slots": {
+                s: gather_params(b, "cpu")
+                for s, b in self.opt_state.slots.items()}},
             "step": self.step,
             "epoch": epoch,
             "val_loss": float("nan") if val_loss is None else float(val_loss),
@@ -252,12 +295,15 @@ class Trainer:
                 return 0
             epoch = epochs[-1]
         payload = torch.load(root / str(epoch) / _STATE_FILE,
-                             map_location=self.device, weights_only=True)
+                             map_location="cpu", weights_only=True)
+        # full leaves, split as this trainer's model is split
         with torch.no_grad():
-            for k, p in self.params.items():
-                p.copy_(payload["params"][k])
-        self.opt_state = OptState.from_state_dict(payload["opt_state"],
-                                                  self.device)
+            for k, v in split_params(payload["params"], self.params).items():
+                self.params[k].copy_(v)
+        state = payload["opt_state"]
+        self.opt_state = OptState(int(state["count"]), {
+            s: split_params(b, self.params)
+            for s, b in state["slots"].items()})
         self.step = int(payload["step"])
         return int(payload["epoch"]) + 1
 

@@ -172,7 +172,8 @@ def test_one_rank_group_is_bit_exact_and_mesh_data_checked(tmp_path):
     """In a one-rank group the step runs its collectives (the weight sum,
     then the gradients and the loss in one all-reduce) and equals the
     step without a group bit for bit; ``mesh_data`` must be the group's
-    size and ``mesh_model`` above 1 is refused."""
+    size, and so must a given mesh's data axis (or 1); ``mesh_model``
+    above 1 splits the model over the process's own row."""
     import datetime
 
     import pytest
@@ -211,7 +212,14 @@ def test_one_rank_group_is_bit_exact_and_mesh_data_checked(tmp_path):
     assert all(torch.equal(a, b) for a, b in zip(l0, l1))
     assert e0[0] == e1[0] and torch.equal(e0[1], e1[1])
     assert all(torch.equal(p0[k], p1[k]) for k in p0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(train_config=TrainConfig(mesh_model=2, device="cpu"))
+    from radian_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="data rows in a group of 1"):
+        Trainer(train_config=TrainConfig(device="cpu"),
+                mesh=make_mesh(2, 1, ["cpu", "cpu"]))
+    tp = Trainer(_tiny(tdefault(), 8), TrainConfig(
+        checkpoint_dir=None, mesh_model=2, device="cpu"))
+    assert tp.row == [torch.device("cpu")] * 2
+    assert tp.mesh.shape == {"data": 1, "model": 2}
     assert Trainer(_tiny(tdefault(), 8), TrainConfig(
         checkpoint_dir=None, mesh_data=1, device="cpu")).world == 1

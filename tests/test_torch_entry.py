@@ -1,5 +1,5 @@
 """The port's entry points default to the card and refuse what it has
-not ported (beams over 16, a mesh 'model' axis).  ``torch`` and the port are imported inside the test (see
+no reference for (beams over 16).  ``torch`` and the port are imported inside the test (see
 ``tests/torch_one_cpu.py``).
 """
 
@@ -21,8 +21,8 @@ def test_entry_points_default_to_the_card_and_refuse_unported(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["in_dir", "out_dir"])
     params = build_model().state_dict()
-    # what stays unported: beams over 16 (the reference's int8
-    # backpointers) and a mesh 'model' axis (tensor parallelism)
+    # what stays refused: beams over 16 (the reference's int8
+    # backpointers overflow)
     for opts in (dict(beam_width=17), dict(decode_type="chunk",
                                            beam_width=17)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -30,9 +30,10 @@ def test_entry_points_default_to_the_card_and_refuse_unported(tmp_path):
                              device="cpu")
     from radian_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-        tpipe.Basecaller(params, device="cpu", mesh=make_mesh(
-            data=1, model=2, devices=["cpu", "cpu"]))
+    # a mesh 'model' axis is accepted: the model row's first device runs
+    bc = tpipe.Basecaller(params, device="cpu", mesh=make_mesh(
+        data=1, model=2, devices=["cpu", "cpu"]))
+    assert len(bc._replicas) == 1
     # multi-GPU inference is ported: a mesh constructs, and the CLI's
     # --mesh-data and --shard-reads run (on an empty directory here)
     bc = tpipe.Basecaller(params, device="cpu", mesh=make_mesh(

@@ -26,7 +26,8 @@ def test_import_leaves_jax_out():
         "'cli.train', 'ops.ctc', 'ops.greedy', 'io.tfrecord', "
         "'utils.tensorboard', 'parallel.mesh', 'parallel.distributed', "
         "'eval.align', 'eval.accuracy', 'utils.profiling', "
-        "'utils.inspect', 'utils.viz', 'ops.beam_native'):\n"
+        "'utils.inspect', 'utils.viz', 'ops.beam_native', "
+        "'models.tensor_parallel'):\n"
         "    assert 'radian_tpu_torch.' + m in sys.modules, m\n"
         "assert 'radian_tpu_torch.models.keras_import' in sys.modules\n"
         "assert 'h5py' not in sys.modules  # imported where it is used\n"
@@ -61,7 +62,8 @@ def test_no_forbidden_imports():
               "ops/greedy.py", "io/tfrecord.py", "utils/tensorboard.py",
               "parallel/mesh.py", "parallel/distributed.py",
               "eval/align.py", "eval/accuracy.py", "utils/profiling.py",
-              "utils/inspect.py", "utils/viz.py", "ops/beam_native.py"):
+              "utils/inspect.py", "utils/viz.py", "ops/beam_native.py",
+              "models/tensor_parallel.py"):
         assert PKG / f in files, f
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders

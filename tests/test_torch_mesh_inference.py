@@ -114,9 +114,19 @@ def test_mesh_validation_and_cli(tmp_path):
     with pytest.raises(ValueError, match="not among the mesh"):
         tpipe.Basecaller(params, cfg, device="cpu",
                          mesh=make_mesh(data=2, devices=["cuda:0", "cuda:1"]))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpipe.Basecaller(params, cfg, device="cpu",
-                         mesh=make_mesh(data=2, model=2, devices=["cpu"] * 4))
+    # a 2x2 mesh: each model row's first device runs its data slice,
+    # once, and the strings are the unsharded ones
+    sigs, _ = _signals()
+    opts4 = tpipe.BasecallOptions(read_batch=4)
+    mesh22 = make_mesh(data=2, model=2, devices=["cpu"] * 4)
+    bc22 = tpipe.Basecaller(params, cfg, options=opts4, mesh=mesh22,
+                            device="cpu")
+    assert len(bc22._replicas) == 2
+    assert mesh22.data_devices() == [mesh22.model_row(i)[0]
+                                     for i in range(2)]
+    want = tpipe.Basecaller(params, cfg, options=opts4,
+                            device="cpu").basecall_signals(sigs[:4])
+    assert bc22.basecall_signals(sigs[:4]) == want and all(want)
     with pytest.raises(ValueError, match="needs 3 devices"):
         make_mesh(data=3, devices=["cpu", "cpu"])
     # the batch split and replication helpers
@@ -130,11 +140,11 @@ def test_mesh_validation_and_cli(tmp_path):
         torch.device("cpu")] * 3
     with pytest.raises(ValueError, match="split evenly"):
         data_sharding(mesh8).parts(x)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        param_shardings(params, mesh3)
+    # a model axis of 1 replicates every leaf
+    assert set(param_shardings({"dense_relu/kernel": np.zeros((16, 16))},
+                               mesh3).values()) == {None}
 
     # the CLI: --mesh-data 2 on the CPU writes the unsharded fasta
-    sigs, _ = _signals()
     f5 = tmp_path / "f5"
     f5.mkdir()
     with h5py.File(f5 / "reads.fast5", "w") as f:

@@ -7,9 +7,9 @@ val loss below 0.7× that of the seed-0 init, as
 JAX CLI's final lines; and ``--export-npz`` writes weights that the JAX
 package's ``load_params_npz`` reads as the trained parameters and that
 both packages' ``load_basecaller`` basecall to the same strings.  Without
-a card the CUDA default raises, --mesh-model above 1 and a
---mesh-data other than the process group raise, and a
-failed build of the shard parser raises.  ``torch`` and the port are
+a card the CUDA default raises, a --mesh-data other than the process
+group raises, --mesh-model 2 builds a trainer on a row of two devices,
+and a failed build of the shard parser raises.  ``torch`` and the port are
 imported inside the tests (see ``tests/torch_one_cpu.py``).
 """
 
@@ -133,13 +133,13 @@ def test_no_fallback(tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(["-s", str(tmp_path)])
     # multi-process training is ported (tests/test_torch_ddp.py,
-    # test_torch_train_cli_multiproc.py); tensor parallelism is not, and
+    # test_torch_train_cli_multiproc.py), and so is tensor parallelism
+    # (tests/test_torch_tensor_parallel.py runs the CLI's --mesh-model);
     # a data axis other than the process group is refused
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli.main(["-s", str(tmp_path), "--device", "cpu",
-                  "--mesh-model", "2"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Trainer(train_config=TrainConfig(mesh_model=2, device="cpu"))
+    assert cli.build_parser().parse_args(
+        ["-s", str(tmp_path), "--mesh-model", "2"]).mesh_model == 2
+    assert len(Trainer(train_config=TrainConfig(
+        checkpoint_dir=None, mesh_model=2, device="cpu")).row) == 2
     with pytest.raises(ValueError, match="one process per GPU"):
         cli.main(["-s", str(tmp_path), "--device", "cpu", "--mesh-data", "2"])
     with pytest.raises(ValueError, match="one process per GPU"):
