@@ -22,12 +22,11 @@ it launches its kernel or raises.
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from radian_tpu_torch import _build
 from radian_tpu_torch.ops import beam_search as plain
+from radian_tpu_torch.utils import profiling
 
 # widest beam the kernels take: the packed byte parent*8 + append+1 must
 # fit int8, as in the reference's backpointers (ROADMAP Queue 3)
@@ -40,16 +39,6 @@ def _target(t: torch.Tensor) -> tuple[int, int]:
     current stream.  The C entries make the ordinal current for the
     kernels' own (static) CUDA runtime before they launch."""
     return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
-
-
-# the shards of a multi-device Basecaller launch from their own threads
-_COUNT_LOCK = threading.Lock()
-
-
-def _count(wrapper) -> None:
-    """One more launch of ``wrapper``'s kernel."""
-    with _COUNT_LOCK:
-        wrapper.launches += 1
 
 
 def _require_cuda(name: str, t: torch.Tensor) -> None:
@@ -91,7 +80,7 @@ def beam_decode_cuda(logm: torch.Tensor, lengths: torch.Tensor,
         logm.data_ptr(), lengths.data_ptr(), bp.data_ptr(), score.data_ptr(),
         nlab.data_ptr(), t_len, n, beam_width, *_target(logm))
     _build.check(lib, err, "beam_decode_kernel launch")
-    _count(beam_decode_cuda)
+    profiling.launch(beam_decode_cuda)
     return bp, nlab, score
 
 
@@ -114,7 +103,7 @@ def beam_backtrace_cuda(bp: torch.Tensor) -> torch.Tensor:
     err = lib.radian_beam_backtrace(bp.data_ptr(), rev.data_ptr(), t_len, w,
                                     n, *_target(bp))
     _build.check(lib, err, "beam_backtrace_kernel launch")
-    _count(beam_backtrace_cuda)
+    profiling.launch(beam_backtrace_cuda)
     return rev
 
 
@@ -195,7 +184,7 @@ def beam_decode_lm_cuda(probs: torch.Tensor, lengths: torch.Tensor,
         bp.data_ptr(), score.data_ptr(), nlab.data_ptr(), t_len, n,
         beam_width, *_target(probs))
     _build.check(lib, err, "beam_decode_lm_kernel launch")
-    _count(beam_decode_lm_cuda)
+    profiling.launch(beam_decode_lm_cuda)
     return bp, nlab, score
 
 

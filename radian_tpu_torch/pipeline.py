@@ -43,6 +43,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import itertools
 import os
 import time
 from pathlib import Path
@@ -94,6 +95,7 @@ from radian_tpu_torch.parallel.mesh import (
     make_mesh,
     replicated_sharding,
 )
+from radian_tpu_torch.utils import profiling
 
 
 # Packed-vs-dense LM layout cut, in bytes of the packed tables: the JAX
@@ -235,16 +237,20 @@ def _on(device: torch.device):
 
 class _ShardedBatch(NamedTuple):
     """A dispatched batch: each future gives its row slice's host record
-    ``(mode, mads, packed, n_wins, n_lab)``, in row order."""
+    ``(mode, mads, packed, n_wins, n_lab)``, in row order; ``batch`` is
+    its number in its call, which its spans carry."""
 
     idxs: list
     futures: list
+    batch: int | None = None
 
     def record(self):
         """The slices' records joined in row order, as the batch's record
         ``(mode, idxs, mads, packed labels, windows a read, n_labels or
         None)`` that ``Basecaller._collect_batch`` renders."""
         parts = [f.result() for f in self.futures]
+        if len(parts) == 1:  # one replica: its arrays need no joining
+            return (parts[0][0], self.idxs, *parts[0][1:])
         fields = zip(*(p[1:] for p in parts))
         return (parts[0][0], self.idxs,
                 *(None if f[0] is None else np.concatenate(f) for f in fields))
@@ -283,6 +289,7 @@ def _prep_model_assemble_fullread(model: SigToSeq, signals, lengths, *,
     """
     window, step = opts.chunk_len, opts.step_size
     norm, mads = mad_normalise(signals, lengths, opts.outlier_clip)
+    profiling.count("forward_samples", norm.numel())
     probs = model(norm[..., None], probs=True)
     lengths = lengths.to(torch.int64)
     # reference window accounting (preprocess.py:4-22) for trim/renorm
@@ -335,6 +342,7 @@ def _model_in_groups(model: SigToSeq, x: torch.Tensor) -> torch.Tensor:
     """``[R, T]`` signal rows → ``[R, T, 5]`` probabilities, the model run
     on at most FORWARD_GROUP_SAMPLES samples at a time."""
     rows = max(1, FORWARD_GROUP_SAMPLES // max(1, x.shape[1]))
+    profiling.count("forward_samples", x.numel())
     return torch.cat([model(x[i:i + rows, :, None], probs=True)
                       for i in range(0, x.shape[0], rows)])
 
@@ -445,8 +453,9 @@ def _chunk_fullread(model: SigToSeq, signals, lengths, *,
     bfloat16, as the JAX package does.
     """
     norm, mads = mad_normalise(signals, lengths, opts.outlier_clip)
-    probs_full = model(F.pad(norm, (0, opts.chunk_len))[..., None],
-                       probs=True)
+    padded = F.pad(norm, (0, opts.chunk_len))
+    profiling.count("forward_samples", padded.numel())
+    probs_full = model(padded[..., None], probs=True)
     if model.compute_dtype == torch.bfloat16:
         probs_full = probs_full.to(torch.bfloat16)
     return norm, probs_full, mads
@@ -607,6 +616,8 @@ class Basecaller:
         # copy waits while the next batch's slice is queued
         self._shard_pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=2 * len(devices), thread_name_prefix="radian-shard")
+        # the sequence number of a call, which its spans carry
+        self._calls = itertools.count()
 
     def _replica(self, device: torch.device) -> "Basecaller":
         """This Basecaller with its model and LM tables copied to
@@ -857,71 +868,107 @@ class Basecaller:
     ) -> list[str | None]:
         """Basecall raw signals → 5'→3' sequences (None = skipped)."""
         results: list[str | None] = [None] * len(signals)
-        # two-deep pipeline: batch k+1's device work is queued before
-        # batch k's labels are copied back, so host work overlaps it
-        inflight: list = []
-        for idxs, b in self.batches(signals):
-            inflight.append(self._dispatch_batch(idxs, b, signals))
-            if len(inflight) >= 2:
-                self._collect_batch(inflight.pop(0).record(), results)
-        for pend in inflight:
-            self._collect_batch(pend.record(), results)
+        with profiling.span("radian.call", self.device,
+                            call=next(self._calls)):
+            with profiling.span("radian.batches"):
+                plan = self.batches(signals)
+            # batch k+1 is dispatched before batch k is rendered, but with
+            # one replica ``_dispatch_batch`` returns only once batch k+1
+            # is back on the host (its copy back waits for the device), so
+            # the render of batch k and the pad of batch k+2 do not overlap
+            # the device.  Spans on an H100, global+LM bf16 at 256 reads a
+            # batch: render ~7.6 ms and pad ~2.1 ms of a ~276 ms batch, the
+            # render ~80 % of the device's idle time; chunk f32: stitch
+            # 50-66 ms of a ~1.56 s batch, ~90 % of the idle time
+            inflight: list = []
+            for k, (idxs, b) in enumerate(plan):
+                inflight.append(self._dispatch_batch(idxs, b, signals, k))
+                if len(inflight) >= 2:
+                    pend = inflight.pop(0)
+                    self._collect_batch(pend.record(), results, pend.batch)
+            for pend in inflight:
+                self._collect_batch(pend.record(), results, pend.batch)
         return results
 
-    def _dispatch_batch(self, idxs, bucket, signals):
+    def _dispatch_batch(self, idxs, bucket, signals, batch=None):
         """Run one batch's device work, a row slice a replica; returns the
         ``_ShardedBatch`` of the slices' futures, whose ``record()``
         ``_collect_batch`` turns into strings.  Several replicas each run
         on a shard thread, so that one device's host copy does not hold
-        back the others; a lone replica runs on the calling thread, where
+        back the others.  A lone replica runs on the calling thread, where
         a card's queue is the same and torch's CPU ops keep their speed
-        (from a worker thread they ran at about half of it)."""
+        (from a worker thread they ran at about half of it): its future
+        is finished, the batch copied back, when this returns."""
         split = data_sharding(self.mesh)
-        padded, lengths = (split.parts(torch.from_numpy(x))
-                           for x in self._pad_host(idxs, bucket, signals))
+        with profiling.span("radian.pad", batch=batch):
+            host = self._pad_host(idxs, bucket, signals)
+        if profiling.tracing():
+            profiling.count("reads", len(idxs))
+            profiling.count("real_samples", int(host[1][:len(idxs)].sum()))
+        padded, lengths = (split.parts(torch.from_numpy(x)) for x in host)
         run = (_run_here if len(self._replicas) == 1
                else self._shard_pool.submit)
+        parent = profiling.current()
         return _ShardedBatch(idxs, [
-            run(rep._slice_to_host, sig, ln, bucket)
+            run(rep._slice_to_host, sig, ln, bucket, parent, batch)
             for rep, (sig, _), (ln, _) in zip(self._replicas, padded,
-                                               lengths)])
+                                               lengths)], batch)
 
     @torch.inference_mode()
     def _device_batch(self, padded, lengths, bucket):
         """One padded batch's device work on ``self.device`` → ``(mode,
         mads, packed labels, windows a read, n_labels or None)``."""
-        o = self.options
+        o, dev = self.options, self.device
         if o.decode_type == "global":
-            mats, t_reads, mads = self.forward(padded, lengths)
-            packed, _ = self.decode(mats, t_reads)
+            with profiling.span("radian.forward", dev):
+                mats, t_reads, mads = self.forward(padded, lengths)
+            with profiling.span("radian.decode", dev):
+                packed, _ = self.decode(mats, t_reads)
             return "global", mads, packed, None, None
         if self.use_chunk_fused:
             geom = self.chunk_geometry(lengths, bucket)
-            norm, probs_full, mads = self.chunk_forward(padded, lengths)
-            probs = self.chunk_window_probs(norm, probs_full, geom)
+            with profiling.span("radian.forward", dev):
+                norm, probs_full, mads = self.chunk_forward(padded, lengths)
+                probs = self.chunk_window_probs(norm, probs_full, geom)
             del norm, probs_full
-            packed, n_lab = self.chunk_decode(probs, geom)
+            with profiling.span("radian.decode", dev):
+                packed, n_lab = self.chunk_decode(probs, geom)
             return "chunk", mads, packed, geom.n_dec, n_lab
-        probs, n_wins, pad_ends, mads = _prep_and_model(
-            self.model, padded, lengths, opts=o,
-            max_windows=max_windows_for(bucket, o.chunk_len, o.step_size))
-        packed, _ = _decode_windows(probs, n_wins, pad_ends, opts=o)
+        with profiling.span("radian.forward", dev):
+            probs, n_wins, pad_ends, mads = _prep_and_model(
+                self.model, padded, lengths, opts=o,
+                max_windows=max_windows_for(bucket, o.chunk_len,
+                                            o.step_size))
+        with profiling.span("radian.decode", dev):
+            packed, _ = _decode_windows(probs, n_wins, pad_ends, opts=o)
         return "chunk", mads, packed, n_wins, None
 
     def _slice_to_host(self, padded: torch.Tensor, lengths: torch.Tensor,
-                       bucket: int):
+                       bucket: int, parent=None, batch=None):
         """A mesh slice, on a shard thread: its host rows copied to this
         replica's device and through its device work, the record copied
-        back to the host."""
-        with _on(self.device):
-            mode, *rec = self._device_batch(padded.to(self.device),
-                                            lengths.to(self.device), bucket)
-            return (mode, *map(_host, rec))
+        back to the host (``parent`` and ``batch``: its spans')."""
+        with _on(self.device), profiling.within(parent, batch):
+            with profiling.span("radian.h2d", self.device):
+                padded = padded.to(self.device)
+                lengths = lengths.to(self.device)
+            mode, *rec = self._device_batch(padded, lengths, bucket)
+            with profiling.span("radian.d2h", self.device):
+                return (mode, *map(_host, rec))
 
-    def _collect_batch(self, pending, results) -> None:
+    def _collect_batch(self, pending, results, batch=None) -> None:
         """Render (global) or stitch (chunk) each read's string of a
         batch's record (host arrays, or tensors copied here) into
         ``results``."""
+        mode = pending[0]
+        on_device = (mode == "chunk" and not self.chunk_tiled
+                     and self.options.consensus == "device")
+        with profiling.span("radian.render" if mode == "global"
+                            else "radian.stitch",
+                            self.device if on_device else None, batch=batch):
+            self._render(pending, results)
+
+    def _render(self, pending, results) -> None:
         o = self.options
         mode, idxs, mads, packed, n_wins, n_lab = pending
         mads = _host(mads)
@@ -1007,7 +1054,7 @@ class Basecaller:
             nonlocal n_written, next_flush
             rec, idx_list = inflight.pop(0)
             out: dict[int, str | None] = {}
-            self._collect_batch(rec.record(), out)
+            self._collect_batch(rec.record(), out, rec.batch)
             for i in idx_list:
                 results[i] = out.get(i)
             while next_flush in results:
@@ -1022,24 +1069,28 @@ class Basecaller:
                 ids.pop(next_flush, None)
                 next_flush += 1
 
+        batch_ids = itertools.count()
+
         def run(bucket, items):
             idx_list = [i for i, _ in items]
-            inflight.append((self._dispatch_batch(idx_list, bucket,
-                                                  dict(items)), idx_list))
+            inflight.append((self._dispatch_batch(
+                idx_list, bucket, dict(items), next(batch_ids)), idx_list))
             if len(inflight) >= 2:
                 collect_one()
 
-        for idx, read in enumerate(reads):
-            n_total += 1
-            ids[idx] = read.read_id
-            b = self._bucket(len(read.signal))
-            pending.setdefault(b, []).append((idx, read.signal))
-            if len(pending[b]) == self.options.read_batch:
-                run(b, pending.pop(b))
-        for b in sorted(pending):
-            run(b, pending[b])
-        while inflight:
-            collect_one()
+        with profiling.span("radian.call", self.device,
+                            call=next(self._calls)):
+            for idx, read in enumerate(reads):
+                n_total += 1
+                ids[idx] = read.read_id
+                b = self._bucket(len(read.signal))
+                pending.setdefault(b, []).append((idx, read.signal))
+                if len(pending[b]) == self.options.read_batch:
+                    run(b, pending.pop(b))
+            for b in sorted(pending):
+                run(b, pending[b])
+            while inflight:
+                collect_one()
         return n_written, n_total
 
     def basecall_directory(

@@ -85,6 +85,7 @@ from radian_tpu_torch.parallel.mesh import (
 )
 from radian_tpu_torch.pipeline import resolve_device
 from radian_tpu_torch.train.optimizers import OptState, build_optimizer
+from radian_tpu_torch.utils import profiling
 from radian_tpu_torch.utils.tensorboard import EventWriter
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -216,18 +217,28 @@ class Trainer:
         """One update on a device batch; returns the global batch's loss
         (on the device).  In a group, the gradients and the loss shares
         are summed in one all-reduce on the row's first device."""
-        loss = self.loss(batch)
-        grads = torch.autograd.grad(loss, list(self.params.values()))
-        if self.grouped:
-            flat = torch.cat([*(g.to(self.device).reshape(-1)
-                                for g in grads), loss.detach().reshape(1)])
-            dist.all_reduce(flat)
-            loss = flat[-1]
-            grads = [part.view_as(g).to(g.device) for part, g in zip(
-                flat[:-1].split([g.numel() for g in grads]), grads)]
-        self.opt_state = self.tx.apply(
-            self.params, dict(zip(self.params, grads)), self.opt_state)
-        self.step += 1
+        dev = self.device
+        with profiling.span("radian.train.step", dev, batch=self.step):
+            with profiling.span("radian.train.forward", dev):
+                loss = self.loss(batch)
+            with profiling.span("radian.train.backward", dev):
+                grads = torch.autograd.grad(loss,
+                                            list(self.params.values()))
+            if self.grouped:
+                with profiling.span("radian.train.allreduce", dev):
+                    flat = torch.cat([*(g.to(dev).reshape(-1)
+                                        for g in grads),
+                                      loss.detach().reshape(1)])
+                    dist.all_reduce(flat)
+                    loss = flat[-1]
+                    grads = [part.view_as(g).to(g.device)
+                             for part, g in zip(flat[:-1].split(
+                                 [g.numel() for g in grads]), grads)]
+            with profiling.span("radian.train.update", dev):
+                self.opt_state = self.tx.apply(
+                    self.params, dict(zip(self.params, grads)),
+                    self.opt_state)
+            self.step += 1
         return loss.detach()
 
     @torch.no_grad()
