@@ -44,9 +44,22 @@ card, and checks them:
               packed bound being over the cut), once with the float32
               forward and tables, once with the bfloat16 forward and
               (auto) bfloat16 tables; the LM decode and backtrace kernels
-              must launch and the no-LM decode must not; float32 card
+              must launch and the no-LM decode must not; the fused TCN
+              kernel must launch once a convolution a batch (12) in the
+              bfloat16 run and never in the float32 one; float32 card
               strings == CPU strings on phase 4's reads; bfloat16 strings
               vs the CPU's bfloat16 run and max |dp| bf16 vs f32 reported
+  5c. tcn     the fused bf16 TCN kernels (csrc/tcn_conv.cu) vs their
+              plain version on the card, each convolution of each block
+              from the same input, on the first global batch's shape (256
+              reads, T 8,192) and on 4 reads of T 4,001 (off the 128-row
+              tile and 32): within TCN_MAX_FLIPS roundings; the whole
+              bf16 forward's probabilities vs the unfused path's (max
+              |dp|, within TCN_MAX_DP_SHARE of the unfused bf16 path's
+              from f32); launches a forward (one a convolution in bf16, none
+              in f32, none in phase 7's f32 chunk runs or phase 9d's
+              training steps); the stack timed beside its bound, the plain
+              version and the unfused cuDNN + glue stack (library_ms)
   6. kernels  each no-LM kernel vs its plain version on the inputs the main
               path gave it (the first batch), timed with CUDA events,
               beside its bound (bytes or operations over the H100's peaks);
@@ -70,10 +83,10 @@ card, and checks them:
   7b. chunk-lm  'fullprobs' + tiled crop + chunk_lm with the bench's LM:
               float32 card == CPU strings on phase 4's reads; the
               bfloat16 forward and tables timed and split on the 512
-              reads (the LM and backtrace kernels must launch, the no-LM
-              decode must not), its strings vs the CPU's bfloat16 run
-              reported; warm single-read latency (read_batch 1, median of
-              5) beside global+LM's
+              reads (the LM and backtrace kernels and the fused TCN
+              kernel must launch, the no-LM decode must not), its strings
+              vs the CPU's bfloat16 run reported; warm single-read
+              latency (read_batch 1, median of 5) beside global+LM's
   7c. chunk-kernels  the no-LM decode and backtrace kernels vs their
               plain versions on all of phase 7's first batch of windows
               (length-0 windows included; bit-exact backpointers, labels
@@ -413,7 +426,6 @@ def e2e_lm(dev, flat, reads, small, opts):
     from radian_tpu_torch.lm.kmer import build_dense_tables, random_kmer_model
     from radian_tpu_torch.models.checkpoint import params_from_flax
     from radian_tpu_torch.models.sig2seq import build_model
-    from radian_tpu_torch.ops import beam_cuda
     from radian_tpu_torch.ops.preprocess import mad_normalise
     from radian_tpu_torch.pipeline import (
         Basecaller,
@@ -436,19 +448,15 @@ def e2e_lm(dev, flat, reads, small, opts):
         bc.basecall_signals(reads)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        for k in (beam_cuda.beam_decode_cuda, beam_cuda.beam_decode_lm_cuda,
-                  beam_cuda.beam_backtrace_cuda):
-            k.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         seqs = bc.basecall_signals(reads)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"beam_decode": beam_cuda.beam_decode_cuda.launches,
-                    "beam_decode_lm": beam_cuda.beam_decode_lm_cuda.launches,
-                    "beam_backtrace": beam_cuda.beam_backtrace_cuda.launches}
+        launches = read_launches()
+        n_batches = len(bc.batches(reads))
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        _line("e2e-lm", forward=name, reads=len(reads),
-              batches=len(bc.batches(reads)),
+        _line("e2e-lm", forward=name, reads=len(reads), batches=n_batches,
               reads_per_s=f"{len(reads) / wall:.2f}",
               msamples_per_s=f"{n_samples / wall / 1e6:.3f}",
               wall_s=f"{wall:.3f}", peak_mem_gb=f"{peak_gb:.2f}",
@@ -460,6 +468,12 @@ def e2e_lm(dev, flat, reads, small, opts):
         if (not launches["beam_decode_lm"] or not launches["beam_backtrace"]
                 or launches["beam_decode"]):
             _fail(f"the LM path did not run through its kernels: {launches}")
+        # the main path's forward: one fused launch a convolution in bf16
+        # (12 a batch), none in f32
+        want_tcn = 2 * len(bc.model.tcn.blocks) * n_batches
+        if launches["tcn_conv"] != (want_tcn if name == "bf16" else 0):
+            _fail(f"the {name} LM path launched tcn_conv "
+                  f"{launches['tcn_conv']} times over {n_batches} batches")
         if any(not s for s in seqs):
             _fail("a read came back empty or skipped on the LM path")
         first = global_split(bc, reads, "e2e-lm", forward=name)
@@ -480,6 +494,8 @@ def e2e_lm(dev, flat, reads, small, opts):
                    "fusions": {"f32": fusion}, "small_strings": got}
         else:
             out["fusions"]["bf16"] = fusion
+            out["tcn_launches"] = launches["tcn_conv"]
+            out["tcn_batches"] = n_batches
         del bc
     # bfloat16 vs float32 probabilities on the card, phase 4's reads
     l_max = max(len(x) for x in small)
@@ -595,19 +611,20 @@ def time_layouts(label, mats, t_reads, w, tables) -> dict:
 
 
 def zero_launches() -> None:
-    from radian_tpu_torch.ops import beam_cuda
+    from radian_tpu_torch.ops import beam_cuda, tcn_conv
 
     for k in (beam_cuda.beam_decode_cuda, beam_cuda.beam_decode_lm_cuda,
-              beam_cuda.beam_backtrace_cuda):
+              beam_cuda.beam_backtrace_cuda, tcn_conv.tcn_conv):
         k.launches = 0
 
 
 def read_launches() -> dict:
-    from radian_tpu_torch.ops import beam_cuda
+    from radian_tpu_torch.ops import beam_cuda, tcn_conv
 
     return {"beam_decode": beam_cuda.beam_decode_cuda.launches,
             "beam_decode_lm": beam_cuda.beam_decode_lm_cuda.launches,
-            "beam_backtrace": beam_cuda.beam_backtrace_cuda.launches}
+            "beam_backtrace": beam_cuda.beam_backtrace_cuda.launches,
+            "tcn_conv": tcn_conv.tcn_conv.launches}
 
 
 def timed_run(dev, bc, reads, phase: str, warm: bool = True,
@@ -792,6 +809,12 @@ def e2e_chunk_lm(dev, flat, reads, small, lm) -> dict:
     if (not launches["beam_decode_lm"] or not launches["beam_backtrace"]
             or launches["beam_decode"]):
         _fail(f"chunk_lm did not run through its kernels: {launches}")
+    # the bf16 full-read forward takes the fused TCN kernels, one launch a
+    # convolution
+    if (not launches["tcn_conv"]
+            or launches["tcn_conv"] % (2 * len(bc.model.tcn.blocks))):
+        _fail(f"chunk_lm's bf16 forward launched tcn_conv "
+              f"{launches['tcn_conv']} times")
     first = chunk_split(bc, reads, "chunk-lm", "window_gather_ms")
     want = make("cpu", torch.bfloat16).basecall_signals(small)
     got = make(dev, torch.bfloat16).basecall_signals(small)
@@ -1192,6 +1215,7 @@ def train_phase(dev, small) -> dict:
     from radian_tpu_torch.config import default_config
     from radian_tpu_torch.io.tfrecord import write_shard
     from radian_tpu_torch.models.sig2seq import param_count
+    from radian_tpu_torch.ops import tcn_conv
     from radian_tpu_torch.ops.ctc import ctc_loss, ctc_loss_reference
     from radian_tpu_torch.pipeline import BasecallOptions, load_basecaller
     from radian_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -1345,8 +1369,10 @@ def train_phase(dev, small) -> dict:
                   f"{grad_rel} of each leaf's largest (> "
                   f"{FIRST_STEP_GRAD_RTOL})")
 
-    # 9d. throughput at batch 256 (scripts/bench_train.py's middle size)
+    # 9d. throughput at batch 256 (scripts/bench_train.py's middle size);
+    # a training step, autograd on, never takes the fused TCN kernels
     b = synth_windows(rng, 256, **traffic)
+    tcn_before = tcn_conv.tcn_conv.launches
     for dtype in ("float32", "bfloat16"):
         torch.cuda.empty_cache()
         tr = Trainer(default_config(), TrainConfig(
@@ -1375,6 +1401,7 @@ def train_phase(dev, small) -> dict:
         out[f"throughput_{dtype}"] = {
             "ms_per_step": step_ms, "windows_per_s": 256e3 / step_ms,
             "model_tflops": tflops, "peak_gb": peak_gb, "split_ms": split}
+    out["tcn_launches"] = tcn_conv.tcn_conv.launches - tcn_before
 
     # the CTC loss alone, forward and backward, on this batch's
     # log-probabilities: F.ctc_loss beside the plain recursion
@@ -1967,6 +1994,191 @@ def tp_rank_main(rank: int, tmp: Path, device: str) -> int:
     return 0
 
 
+# phase 5c: the fused TCN kernels against their plain version on the card
+# (an output of each block from the same input), and the whole bf16
+# forward's probabilities against the unfused path's.  (reads, T): the
+# first global batch; T off a multiple of the kernel's 128-row tile and 32
+TCN_CASES = ((256, 8192), (4, 4001))
+# The kernel and the plain version sum the f32 products in another order:
+# the two sums differ by up to ~sqrt(K) f32 ulps of the sum of |products|
+# (2^-19 of it, K = 768), and each bf16 rounding after can flip by one ulp
+# of the value rounded there: the product (+ bias), the residual sum, the
+# output.  A difference is counted in flips: |d| over the sum of those
+# allowances; 1 = one flip at every point
+TCN_MAX_FLIPS = 2.0
+# The whole bf16 forward's probabilities, fused against unfused (max |dp|
+# over every read, step and class), as a share of the unfused bf16
+# forward's own max |dp| from the f32 forward on the same reads: the two
+# bf16 paths differ only by those flips, carried through six blocks, and
+# must stay nearer each other than bf16 is to f32.  Readings on an H100
+# (T 8,192 / 4,001): fused vs unfused 0.0622 / 0.0310, unfused vs f32
+# 0.1002 / 0.0736, shares 0.62 / 0.42; 1 would be bf16's own error
+TCN_MAX_DP_SHARE = 0.8
+
+
+def _ulp(x):
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.float().abs())) - 7)
+
+
+def _flips(got, want, x, w, d, bias, residual=None) -> float:
+    """Largest ``|got - want|`` of ``tcn_conv(x, w, bias, d, ...)`` in
+    flips (above); ``residual``: the block input the convolution's output
+    is added to, ``[N, T, C]``."""
+    import torch
+
+    product = _product_f32(x, w, d)
+    room = (_ulp(product.abs() + bias.float().abs()) + _ulp(want)
+            + _product_f32(x.abs(), w.abs(), d) * 2.0 ** -19)
+    del product
+    if residual is not None:
+        room += _ulp(residual)
+    diff = (got.float() - want.float()).abs()
+    return float(torch.where(diff > 0, diff / room, 0.0).max())
+
+
+def _product_f32(x, w, d):
+    """The convolution of ``tcn_conv``'s ``x`` and packed ``w`` without
+    bias, in f32 (TF32 off), ``[N, T, C_out]``."""
+    from radian_tpu_torch.models.tcn import causal_conv1d
+
+    c_in = x.shape[2]
+    w = w.float().view(w.shape[0], -1, c_in).transpose(1, 2).contiguous()
+    return causal_conv1d(x.float().transpose(1, 2), w, None,
+                         d).transpose(1, 2)
+
+
+def tcn_phase(dev, flat) -> dict:
+    """Phase 5c: the fused TCN path (``ops/tcn_conv.py``,
+    ``csrc/tcn_conv.cu``) on TCN_CASES: each convolution's kernel output
+    against the plain version on the card; the forward's probabilities
+    against the unfused path's; launches a forward (one a convolution on
+    the bf16 path, none in f32); times of the kernel, the plain version
+    and the unfused cuDNN + glue path beside the bound."""
+    import torch
+
+    from radian_tpu_torch.models.checkpoint import params_from_flax
+    from radian_tpu_torch.models.sig2seq import build_model
+    from radian_tpu_torch.ops import tcn_conv as tc
+    from radian_tpu_torch.ops.preprocess import mad_normalise
+    from radian_tpu_torch.utils.synthetic import kmer_level_table
+
+    peak_ops = 989e12  # H100 SXM bf16 dense, 700 W
+    params = params_from_flax(flat)
+    models = {}
+    for dt in (torch.bfloat16, torch.float32):
+        models[dt] = build_model(compute_dtype=dt)
+        models[dt].load_state_dict(params)
+        models[dt].to(dev).eval()
+    model = models[torch.bfloat16]
+    blocks = model.tcn.blocks
+    levels = kmer_level_table(np.random.default_rng(1))
+    out = {}
+    for n, t_len in TCN_CASES:
+        rng = np.random.default_rng(7)
+        lens = rng.integers(min(5120, t_len // 2), t_len + 1, n)
+        lens[0] = t_len
+        padded = np.zeros((n, t_len), np.int16)
+        for i, x in enumerate(synth_signals(rng, lens, levels)):
+            padded[i, :len(x)] = x
+        norm, _ = mad_normalise(torch.from_numpy(padded).to(dev),
+                                torch.from_numpy(lens.astype(np.int32)).to(dev))
+        sig = norm.to(torch.bfloat16)
+        flips, differ, convs = [], [], []
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode():
+            h = None
+            for block in blocks:
+                d = block.conv0.dilation
+                w0, b0 = tc.packed(block.conv0, torch.bfloat16)
+                w1, b1 = tc.packed(block.conv1, torch.bfloat16)
+                if h is None:
+                    w_sc, b_sc = tc.packed(block.shortcut, torch.bfloat16)
+                    x0, kw = sig[..., None], {
+                        "shortcut": (sig, w_sc.view(-1), b_sc)}
+                    res = sig[..., None] * w_sc.view(-1) + b_sc
+                else:
+                    x0, kw, res = h, {"residual": h}, h
+                y_k = tc.tcn_conv(x0, w0, b0, d)
+                y_p = tc.tcn_conv_plain(x0, w0, b0, d)
+                u0 = _flips(y_k, y_p, x0, w0, d, b0)
+                h_k = tc.tcn_conv(y_p, w1, b1, d, **kw)
+                h_p = tc.tcn_conv_plain(y_p, w1, b1, d, **kw)
+                u1 = _flips(h_k, h_p, y_p, w1, d, b1, res)
+                differ.append(round(float((h_k != h_p).float().mean()), 5))
+                flips.append((round(u0, 3), round(u1, 3)))
+                convs.append((x0, w0, b0, d, {}))
+                convs.append((y_p, w1, b1, d, kw))
+                h = h_p
+            del y_k, y_p, h_k, h_p, h, res
+            x = norm[..., None]
+            tc.tcn_conv.launches = 0
+            p_fused = model(x, probs=True)
+            launches_bf16 = tc.tcn_conv.launches
+            tc.tcn_conv.launches = 0
+            p_f32 = models[torch.float32](x, probs=True)
+            launches_f32 = tc.tcn_conv.launches
+        # the unfused path: autograd on, nothing to record
+        model.requires_grad_(False)
+        with torch.enable_grad():
+            p_unfused = model(x, probs=True)
+            lib_ms = cuda_ms(lambda: model.tcn(
+                sig[:, None, :]).transpose(1, 2).contiguous(), 3)
+        model.requires_grad_(True)
+        dp = float((p_fused - p_unfused).abs().max())
+        dp_bf16 = float((p_unfused - p_f32).abs().max())
+        dp_fused_f32 = float((p_fused - p_f32).abs().max())
+        del p_fused, p_unfused, p_f32
+        with torch.inference_mode():
+            fused_ms = cuda_ms(lambda: tc.tcn_forward(model.tcn, sig), 3)
+            model_ms = cuda_ms(lambda: model(x, probs=True), 3)
+            conv_ms = [cuda_ms(lambda c=c: tc.tcn_conv(c[0], c[1], c[2], c[3],
+                                                       **c[4]), 3)
+                       for c in convs]
+            plain_ms = [cuda_ms(lambda c=c: tc.tcn_conv_plain(
+                c[0], c[1], c[2], c[3], **c[4]), 3) for c in convs]
+        del convs
+        rows = n * t_len
+        flops = 2 * rows * sum(p.numel() for p in model.tcn.parameters()
+                               if p.dim() > 1)
+        # bf16 elements a row: the signal, block 0's first output, each
+        # GEMM convolution's input read and output written, and the
+        # residual read again by the second convolution of blocks 1-5
+        n_bytes = rows * 2 * (1 + 256 + 11 * 2 * 256 + 5 * 256)
+        bound_ms, bound_by = max((flops / peak_ops * 1e3, "operations"),
+                                 (n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes"))
+        worst = max(max(u) for u in flips)
+        _line("tcn", reads=n, T=t_len, max_flips=json.dumps(flips),
+              share_differing=json.dumps(differ),
+              max_abs_dp_vs_unfused=f"{dp:.3e}",
+              max_abs_dp_unfused_vs_f32=f"{dp_bf16:.3e}",
+              max_abs_dp_vs_f32=f"{dp_fused_f32:.3e}",
+              launches_bf16=launches_bf16, launches_f32=launches_f32,
+              stack_ms=f"{fused_ms:.3f}", bound_ms=f"{bound_ms:.3f}",
+              bound_by=bound_by, library_ms=f"{lib_ms:.3f}",
+              plain_ms=f"{sum(plain_ms):.3f}", model_ms=f"{model_ms:.3f}",
+              tflops=f"{flops / fused_ms / 1e9:.1f}",
+              conv_ms=json.dumps([round(v, 3) for v in conv_ms]))
+        if not worst <= TCN_MAX_FLIPS:
+            _fail(f"fused TCN kernel {worst} roundings from its plain "
+                  f"version (T {t_len})")
+        if not dp <= TCN_MAX_DP_SHARE * dp_bf16:
+            _fail(f"the fused forward's probabilities are {dp} from the "
+                  f"unfused path's (T {t_len}), over {TCN_MAX_DP_SHARE} of "
+                  f"the unfused bf16 path's {dp_bf16} from f32")
+        if launches_bf16 != 2 * len(blocks) or launches_f32:
+            _fail(f"tcn_conv launched {launches_bf16} times a bf16 forward "
+                  f"and {launches_f32} in f32")
+        out[t_len] = {"ms": fused_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "plain_ms": sum(plain_ms),
+                      "library_ms": lib_ms, "model_ms": model_ms,
+                      "max_flips": worst, "max_abs_dp": dp,
+                      "max_abs_dp_unfused_vs_f32": dp_bf16,
+                      "forward_launches": launches_bf16}
+    return out
+
+
 def synth_signals(rng, lengths, levels):
     from radian_tpu_torch.utils.synthetic import synth_read
 
@@ -1993,7 +2205,7 @@ def main() -> int:
         params_from_flax,
     )
     from radian_tpu_torch.models.sig2seq import build_model
-    from radian_tpu_torch.ops import beam_cuda
+    from radian_tpu_torch.ops import beam_cuda, tcn_conv
     from radian_tpu_torch.ops import beam_search as plain
     from radian_tpu_torch.ops.preprocess import mad_normalise
     from radian_tpu_torch.pipeline import BasecallOptions, load_basecaller
@@ -2156,6 +2368,11 @@ def main() -> int:
 
     phase_done("5b")
 
+    # 5c. the fused TCN kernels ------------------------------------------
+    tcn = tcn_phase(dev, flat)
+
+    phase_done("5c")
+
     # 6. kernels on the main path's inputs (first batch) -----------------
     mats, t_reads = first
     n_b, t_b, _ = mats.shape
@@ -2213,7 +2430,10 @@ def main() -> int:
     phase_done("6b")
 
     # 7. chunk mode (fused) -------------------------------------------------
+    # the f32 chunk path and training never take the fused TCN kernels
+    tcn_conv.tcn_conv.launches = 0
     chunk_run = e2e_chunk(dev, reads, small)
+    tcn["launches_chunk_f32"] = tcn_conv.tcn_conv.launches
 
     phase_done("7")
 
@@ -2237,6 +2457,12 @@ def main() -> int:
 
     # 9. training: the CLI, resume, card vs CPU, throughput, basecall ------
     train = train_phase(dev, small)
+    tcn["launches_train"] = train.pop("tcn_launches")
+    _line("tcn-launches", chunk_f32=tcn["launches_chunk_f32"],
+          train_steps=tcn["launches_train"])
+    if tcn["launches_chunk_f32"] or tcn["launches_train"]:
+        _fail("the fused TCN kernels launched on the f32 chunk path or in "
+              "a training step")
     phase_done("9")
 
     # 10. multi-GPU paths on the one card -----------------------------------
@@ -2302,6 +2528,16 @@ def main() -> int:
          "train_launches": train["basecall_launches"]["beam_decode_lm"],
          "mesh_launches": mesh["launches"]["beam_decode_lm"],
          "tp_launches": tp["basecall_launches"]["beam_decode_lm"]},
+        {"name": "tcn_conv", "route": "cuda",
+         "source": "radian_tpu_torch/csrc/tcn_conv.cu",
+         "replaces": "none (XLA's convolution + fusion; cuDNN + glue here)",
+         **tcn[TCN_CASES[0][1]],
+         "launches": lm_run["tcn_launches"],
+         "launch_batches": lm_run["tcn_batches"],
+         "chunk_lm_launches": chunk_lm_run["launches"]["tcn_conv"],
+         "off_tile": tcn[TCN_CASES[1][1]],
+         "chunk_f32_launches": tcn["launches_chunk_f32"],
+         "train_step_launches": tcn["launches_train"]},
     ]
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"train": train}))

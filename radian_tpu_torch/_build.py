@@ -49,6 +49,12 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _P], _I),
         "radian_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "tcn_conv": {
+        "radian_tcn_conv": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _P], _I),
+        "radian_tcn_conv_in": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "radian_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
     "seqmatch": {
         "LongestBlock": ([_P, _L, _P, _L, _P], None),
         "AssembleFragments": ([_P, _P, _L, _P], _L),
@@ -154,6 +160,17 @@ def load(name: str) -> ctypes.CDLL:
                 f.restype = restype
             _LIBS[name] = lib
         return lib
+
+
+def target(t) -> tuple[int, int]:
+    """``(ordinal, stream)`` a launch for CUDA tensor ``t`` goes to:
+    ``t``'s device, whatever the calling thread's current device, and
+    that device's current stream.  The C entries make the ordinal
+    current for the kernels' own (static) CUDA runtime before they
+    launch."""
+    import torch
+
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

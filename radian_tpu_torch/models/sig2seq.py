@@ -2,9 +2,14 @@
 
 ``[N, T, 1] → TCN → Linear(relu_units) → ReLU → Linear(softmax_units)
 → f32 log-softmax`` (or softmax), one distribution over {A, C, G, U,
-blank} per input sample.  The conv stack is ``F.conv1d`` (cuDNN on the
-card) and the head is two matrix products: both were plain XLA on the
-TPU, not Pallas kernels.
+blank} per input sample.  Both were plain XLA on the TPU, not Pallas
+kernels.  The conv stack takes one of two paths (``tcn.py``): bf16
+inference on a CUDA device runs ``ops/tcn_conv.py``'s fused kernels,
+channels-last ``[N, T, C]`` throughout, one launch a convolution;
+everything else runs ``TCN.forward``'s ``F.conv1d`` (cuDNN on the card)
+in ``[N, C, T]``, transposed in and out.  Their rounding points are the
+same.  The head is two matrix products (``F.linear``) on ``[N, T, C]``
+either way.
 
 ``compute_dtype=torch.bfloat16`` runs the convolutions and the head in
 bfloat16 like the flax model's ``compute_dtype``: parameters stay
@@ -22,6 +27,7 @@ from radian_tpu_torch.config import DotDict, default_config
 from radian_tpu_torch.models.checkpoint import params_from_flax
 from radian_tpu_torch.models.init import init_params
 from radian_tpu_torch.models.tcn import TCN
+from radian_tpu_torch.ops import tcn_conv
 
 
 class SigToSeq(nn.Module):
@@ -72,8 +78,11 @@ class SigToSeq(nn.Module):
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         dt = self.compute_dtype
-        h = self.tcn(x.to(dt).transpose(1, 2), train)
-        h = h.transpose(-1, -2) if h.dim() == 3 else h  # [N, T, C]
+        if tcn_conv.engages(self, x, train):
+            h = tcn_conv.tcn_forward(self.tcn, x[..., 0].to(dt))
+        else:
+            h = self.tcn(x.to(dt).transpose(1, 2), train)
+            h = h.transpose(-1, -2) if h.dim() == 3 else h  # [N, T, C]
         h = F.relu(_dense(h, self.dense_relu, dt))
         logits = _dense(h, self.dense_out, dt).float()
         if probs:

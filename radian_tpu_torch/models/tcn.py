@@ -14,9 +14,23 @@ flax adds it (fused into the convolution, the trained model's
 probabilities on the CPU sat up to 3.8e-2 from flax's instead of
 1.1e-2).
 
-Layout: the public boundary is ``[N, T, C]`` like the JAX module; inside,
-activations are ``[N, C, T]``, the layout ``F.conv1d`` takes, so the stack
-transposes once on the way in and once on the way out.
+Two paths compute the stack, with the same rounding points:
+
+- ``TCN.forward`` (this module): activations ``[N, C, T]``, the layout
+  ``F.conv1d`` takes (cuDNN on the card), each convolution ``F.pad``-ed,
+  its bias, ReLUs and residual sum separate PyTorch operations;
+  ``SigToSeq.forward`` transposes once on the way in and once on the way
+  out, so its public boundary is ``[N, T, C]`` like the JAX module.  It
+  serves float32, training and anything autograd records, the CPU,
+  tensor-parallel models (``models/tensor_parallel.py``) and skip
+  connections.
+- ``ops/tcn_conv.py::tcn_forward``: bf16 inference on a CUDA device
+  (``ops/tcn_conv.py::engages``, no knob): activations ``[N, T, C]`` from
+  the signal to the dense head, one launch of ``csrc/tcn_conv.cu`` a
+  convolution with its bias, ReLU and residual sum fused in; the causal
+  padding is the kernel's zero-filled loads.  It rounds the product to
+  bf16, adds the bf16 bias in float32 and rounds, and sums the residual
+  in float32, as this module does.
 """
 
 from __future__ import annotations

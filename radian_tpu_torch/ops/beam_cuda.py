@@ -33,14 +33,6 @@ from radian_tpu_torch.utils import profiling
 MAX_BEAM = 16
 
 
-def _target(t: torch.Tensor) -> tuple[int, int]:
-    """``(ordinal, stream)`` a launch for ``t`` goes to: ``t``'s device,
-    whatever the calling thread's current device, and that device's
-    current stream.  The C entries make the ordinal current for the
-    kernels' own (static) CUDA runtime before they launch."""
-    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _require_cuda(name: str, t: torch.Tensor) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CPU or CUDA tensor, got "
@@ -78,7 +70,7 @@ def beam_decode_cuda(logm: torch.Tensor, lengths: torch.Tensor,
     lib = _build.load("beam_search")
     err = lib.radian_beam_decode(
         logm.data_ptr(), lengths.data_ptr(), bp.data_ptr(), score.data_ptr(),
-        nlab.data_ptr(), t_len, n, beam_width, *_target(logm))
+        nlab.data_ptr(), t_len, n, beam_width, *_build.target(logm))
     _build.check(lib, err, "beam_decode_kernel launch")
     profiling.launch(beam_decode_cuda)
     return bp, nlab, score
@@ -101,7 +93,7 @@ def beam_backtrace_cuda(bp: torch.Tensor) -> torch.Tensor:
     rev = torch.empty((n, t_len), dtype=torch.int32, device=bp.device)
     lib = _build.load("beam_search")
     err = lib.radian_beam_backtrace(bp.data_ptr(), rev.data_ptr(), t_len, w,
-                                    n, *_target(bp))
+                                    n, *_build.target(bp))
     _build.check(lib, err, "beam_backtrace_kernel launch")
     profiling.launch(beam_backtrace_cuda)
     return rev
@@ -182,7 +174,7 @@ def beam_decode_lm_cuda(probs: torch.Tensor, lengths: torch.Tensor,
         probs.data_ptr(), lengths.data_ptr(), lm.t1.data_ptr(),
         lm.t2.data_ptr(), kind, lm.ctx_len, lm.s_threshold, lm.r_threshold,
         bp.data_ptr(), score.data_ptr(), nlab.data_ptr(), t_len, n,
-        beam_width, *_target(probs))
+        beam_width, *_build.target(probs))
     _build.check(lib, err, "beam_decode_lm_kernel launch")
     profiling.launch(beam_decode_lm_cuda)
     return bp, nlab, score
