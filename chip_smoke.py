@@ -60,6 +60,15 @@ card, and checks them:
               in f32, none in phase 7's f32 chunk runs or phase 9d's
               training steps); the stack timed beside its bound, the plain
               version and the unfused cuDNN + glue stack (library_ms)
+  5d. tx      Bonito's v5 transformer-CRF model at its published widths
+              (seeded): 5 reads through the Basecaller in 16-chunk
+              batches ending on a partial one, the Viterbi kernels
+              launched once a batch; the kernels against the plain
+              Viterbi on each batch's bf16 scores (bit-equal paths), and
+              on the first batch's tiled to the main path's 512 chunks,
+              timed there beside the bound; the bf16
+              scores within the cell's score_gap of the f32 reference's
+              on 4 chunks
   6. kernels  each no-LM kernel vs its plain version on the inputs the main
               path gave it (the first batch), timed with CUDA events,
               beside its bound (bytes or operations over the H100's peaks);
@@ -2179,6 +2188,130 @@ def tcn_phase(dev, flat) -> dict:
     return out
 
 
+# phase 5d: the transformer-CRF model (models/tx_crf.py) at Bonito's v5
+# sup widths (the benchmark cell's configuration file), seeded with the
+# benchmark's Bonito init: reads whose chunks fill one 16-chunk batch and
+# end on a partial one, through the Basecaller (the Viterbi kernels a
+# batch), the kernels against the plain Viterbi on each batch's own bf16
+# scores (bit-equal paths, backpointers and final states), again at the
+# main path's 512-chunk batch (the first batch's scores tiled 32 times:
+# ~10.7 GB of scores, offsets past 2^32) and timed there, and the bf16
+# forward's scores against the f32 reference's
+# (benchmark/core/reference_tx_crf.py) on TX_GAP_CHUNKS chunks, within
+# the benchmark cell's score_gap limit
+TX_BATCH = 16
+TX_MAIN_BATCH = 512  # the cell's chunk_batch
+TX_LENGTHS = (3000, 12288, 12289, 41000, 140900)  # 1+1+2+4+13 = 21 chunks
+TX_GAP_CHUNKS = 4
+TX_CHECKS = REPO / "benchmark" / "checks" / "tx_sup_bf16.bulk_long.json"
+TX_CONFIG = REPO / "benchmark" / "configs" / "bonito-tx-sup-v5-bf16.json"
+
+
+def tx_phase(dev, levels) -> dict:
+    """Phase 5d (above): the kernels' launches on the main path, their
+    paths against the plain version's, their time beside the bound, and
+    the bf16 scores' gap from the f32 reference."""
+    import torch
+
+    from benchmark.core import reference_tx_crf as ref
+    from radian_tpu_torch.config import DotDict
+    from radian_tpu_torch.ops import crf_viterbi as cv
+    from radian_tpu_torch.pipeline import Basecaller, BasecallOptions
+
+    cfg = DotDict(json.loads(TX_CONFIG.read_text())["model_config"])
+    weights = ref.bonito_init(cfg.model, 16)
+    bc = Basecaller({k: torch.from_numpy(v) for k, v in weights.items()},
+                    cfg, None, BasecallOptions(chunk_batch=TX_BATCH),
+                    torch.bfloat16, device=dev)
+    reads = synth_signals(np.random.default_rng(16), TX_LENGTHS, levels)
+    plan = bc.chunk_batches(reads)
+    cv.crf_viterbi.launches = cv.crf_backtrace.launches = 0
+    seqs = bc.basecall_signals(reads)
+    torch.cuda.synchronize()
+    launches = {"crf_viterbi": cv.crf_viterbi.launches,
+                "crf_backtrace": cv.crf_backtrace.launches}
+    _line("tx-e2e", reads=len(reads), batches=len(plan),
+          chunks=[b.n_chunks for _, b in plan],
+          lengths=[len(x) for x in seqs], launches=json.dumps(launches))
+    if any(v != len(plan) for v in launches.values()):
+        _fail(f"the Viterbi kernels did not launch once a batch: {launches}")
+    if any(not x for x in seqs):
+        _fail("a transformer-CRF read came back empty or skipped")
+    if plan[0][1].n_chunks != TX_BATCH or plan[-1][1].n_chunks >= TX_BATCH:
+        _fail("phase 5d's reads must fill a batch and end on a partial one")
+    first = None
+    for idxs, b in (plan[0], plan[-1]):
+        scores, _ = bc.crf_scores(*bc.pad_batch(idxs, b, reads))
+        s = scores[:b.n_chunks]
+        bp, fin = cv.crf_viterbi(s, 5)
+        path = cv.crf_backtrace(bp, fin)
+        bp_p, fin_p = cv.viterbi_forward_plain(s, 5)
+        path_p = cv.backtrace_plain(bp_p, fin_p)
+        same = (torch.equal(bp, bp_p) and torch.equal(fin, fin_p)
+                and torch.equal(path, path_p))
+        _line("tx-viterbi", chunks=b.n_chunks, steps=s.shape[1],
+              equal=same, moves=int((path >= 0).sum()))
+        if not same:
+            _fail("the Viterbi kernels disagree with the plain version")
+        if first is None:
+            first = (b, scores, bp_p, fin_p, path_p)
+    b, scores, bp_p, fin_p, path_p = first
+    # the main path's batch: the first batch's scores tiled to 512 chunks
+    tile = TX_MAIN_BATCH // TX_BATCH
+    big = scores[:TX_BATCH].repeat(tile, 1, 1)
+    bp, fin = cv.crf_viterbi(big, 5)
+    path = cv.crf_backtrace(bp, fin)
+    same = (torch.equal(bp, bp_p.repeat(tile, 1, 1))
+            and torch.equal(fin, fin_p.repeat(tile))
+            and torch.equal(path, path_p.repeat(tile, 1)))
+    _line("tx-viterbi", chunks=big.shape[0], steps=big.shape[1],
+          score_bytes=big.numel() * big.element_size(), equal=same)
+    if not same:
+        _fail("the Viterbi kernels disagree with the plain version at the "
+              "main path's batch")
+    del path, bp_p, fin_p, path_p
+    fwd_ms = cuda_ms(lambda: cv.crf_viterbi(big, 5), 3)
+    bt_ms = cuda_ms(lambda: cv.crf_backtrace(bp, fin), 3)
+    t0 = time.perf_counter()
+    cv.backtrace_plain(*cv.viterbi_forward_plain(scores[:TX_BATCH], 5))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n, t_len, width = big.shape
+    states = width // 5
+    # the 4 move scores a state-step and the blank score once (as
+    # benchmark/core/counts_tx_crf.py counts them)
+    n_bytes = n * (t_len * states * 4 * 2 + 2 + t_len * states + 2 * t_len
+                   + 4)
+    n_ops = n * (9 * t_len * states + states + 3 * t_len)
+    bound_ms, by = bound(n_bytes, n_ops)
+    del big, bp, fin
+    _line("tx-kernels", chunks=n, steps=t_len, states=states,
+          viterbi_ms=f"{fwd_ms:.3f}", backtrace_ms=f"{bt_ms:.3f}",
+          bound_ms=f"{bound_ms:.3f}", bound_by=by,
+          share=f"{bound_ms / (fwd_ms + bt_ms):.3f}",
+          plain_ms_16_chunks=f"{plain_ms:.1f}")
+    # the bf16 forward's scores against the f32 reference's
+    p = ref.params(weights, dev)
+    size, overlap = cfg.basecaller.chunksize, cfg.basecaller.overlap
+    gap, seen = 0.0, {}
+    for r in range(TX_GAP_CHUNKS):
+        i = b.reads[b.row_read[r]]
+        m = seen.get(i, 0)
+        seen[i] = m + 1
+        ch = ref.chunks(ref.mad_normalise(reads[i], 4.0), size, overlap)[m]
+        want = ref.forward(p, cfg.model, torch.from_numpy(ch).to(dev))
+        gap = max(gap, float((scores[r].float() - want).abs().max()))
+    limit = json.loads(TX_CHECKS.read_text())["limits"]["score_gap"]
+    _line("tx-gap", chunks=TX_GAP_CHUNKS, score_gap=f"{gap:.4f}",
+          limit=limit)
+    if not gap <= limit:
+        _fail(f"the bf16 scores are {gap} from the f32 reference's "
+              f"(limit {limit})")
+    return {"launches": launches, "ms": fwd_ms, "backtrace_ms": bt_ms,
+            "plain_ms_16_chunks": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "score_gap": gap}
+
+
 def synth_signals(rng, lengths, levels):
     from radian_tpu_torch.utils.synthetic import synth_read
 
@@ -2373,6 +2506,11 @@ def main() -> int:
 
     phase_done("5c")
 
+    # 5d. the transformer-CRF model and its Viterbi kernels ---------------
+    tx = tx_phase(dev, levels)
+
+    phase_done("5d")
+
     # 6. kernels on the main path's inputs (first batch) -----------------
     mats, t_reads = first
     n_b, t_b, _ = mats.shape
@@ -2538,6 +2676,9 @@ def main() -> int:
          "off_tile": tcn[TCN_CASES[1][1]],
          "chunk_f32_launches": tcn["launches_chunk_f32"],
          "train_step_launches": tcn["launches_train"]},
+        {"name": "crf_viterbi", "route": "cuda",
+         "source": "radian_tpu_torch/csrc/crf_viterbi.cu",
+         "replaces": "none (the transformer-CRF model's decode)", **tx},
     ]
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"train": train}))

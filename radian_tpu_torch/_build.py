@@ -55,6 +55,11 @@ _SIGNATURES = {
         "radian_tcn_conv_in": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
         "radian_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "crf_viterbi": {
+        "radian_crf_viterbi": ([_P, _I, _P, _P, _I, _I, _I, _I, _P], _I),
+        "radian_crf_backtrace": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "radian_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
     "seqmatch": {
         "LongestBlock": ([_P, _L, _P, _L, _P], None),
         "AssembleFragments": ([_P, _P, _L, _P], _L),

@@ -15,6 +15,14 @@ Usage:
         [--decode-type chunk [--chunk-prep fullprobs [--chunk-lm]] \
          [--consensus device]] [--streaming] [--mesh-data N] \
         [--shard-reads]
+
+A ``bonito_tx_crf`` model (Bonito's transformer-CRF basecaller) runs
+through the same command, its yaml given to ``--sig-config`` (weights
+from ``--sig-model`` as an ``.npz`` of its state dict, else seeded):
+
+    python -m radian_tpu_torch.cli.basecall FAST5_DIR FASTA_DIR \
+        --sig-config tx_sup_v5.yaml --compute-dtype bfloat16 \
+        --chunk-batch 512
 """
 
 from __future__ import annotations
@@ -44,7 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint: flax-layout .npz, the reference's "
                         "Keras .h5 (needs h5py), or omit for seeded init "
                         "(the JAX package's weights for --seed)")
-    p.add_argument("--sig-config", default=None, help="model config yaml")
+    p.add_argument("--sig-config", default=None,
+                   help="model config yaml: radian's sig2seq schema, or a "
+                        "bonito_tx_crf model (model.type: bonito_tx_crf, "
+                        "with a basecaller section: chunksize, overlap)")
     p.add_argument("--beam-width", default=6, type=int)
     p.add_argument("--decode-type", choices=["global", "chunk"],
                    default="global")
@@ -108,6 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prewarm", action="store_true",
                    help="run one batch per --bucket-lengths entry before "
                         "processing reads")
+    p.add_argument("--chunk-batch", default=64, type=int,
+                   help="chunks a batch of a bonito_tx_crf model")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain PyTorch "
                         "path")
@@ -158,6 +171,7 @@ def _basecall(args) -> None:
         chunk_lm=args.chunk_lm,
         chunk_max_lab=args.chunk_max_lab,
         consensus=args.consensus,
+        chunk_batch=args.chunk_batch,
         bucket_lengths=(
             tuple(int(x) for x in args.bucket_lengths.split(","))
             if args.bucket_lengths else None

@@ -263,3 +263,69 @@ def init_params(config: DotDict | None = None,
         else:
             out[name] = np.zeros(shape, np.float32)
     return out
+
+
+def tx_crf_param_shapes(model: DotDict) -> dict[str, tuple[int, ...]]:
+    """The ``bonito_tx_crf`` model's parameter names (``TxCrfModel``'s
+    state dict) and shapes, in the order ``init_tx_crf`` draws them."""
+    shapes: dict[str, tuple[int, ...]] = {}
+    for i, s in enumerate(model.stem):
+        shapes[f"stem.{i}.weight"] = (s.size, s.insize, s.winlen)
+        shapes[f"stem.{i}.bias"] = (s.size,)
+    enc = model.encoder
+    d, ff = enc.d_model, enc.dim_feedforward
+    for i in range(enc.num_layers):
+        pre = f"encoder.{i}"
+        shapes[f"{pre}.self_attn.Wqkv.weight"] = (3 * d, d)
+        shapes[f"{pre}.self_attn.out_proj.weight"] = (d, d)
+        shapes[f"{pre}.self_attn.out_proj.bias"] = (d,)
+        shapes[f"{pre}.ff.fc1.weight"] = (2 * ff, d)
+        shapes[f"{pre}.ff.fc2.weight"] = (d, ff)
+        shapes[f"{pre}.norm1.weight"] = (d,)
+        shapes[f"{pre}.norm2.weight"] = (d,)
+    up = model.upsample.scale_factor
+    shapes["upsample.weight"] = (up * d, d)
+    shapes["upsample.bias"] = (up * d,)
+    shapes["crf.weight"] = (4 ** model.crf.state_len * 4, d)
+    return shapes
+
+
+def init_tx_crf(model: DotDict, seed: int = 0) -> dict[str, np.ndarray]:
+    """``{name: float32 array}`` for a ``bonito_tx_crf`` model from
+    ``seed``, with Bonito's init: its ``TransformerEncoderLayer.
+    reset_parameters`` draws ``fc1``, ``fc2``, ``out_proj`` and the V rows
+    of ``Wqkv`` Xavier-normal with the DeepNorm gain β, the Q and K rows
+    with gain 1; every other weight and bias takes PyTorch's default
+    (uniform in ``±1/sqrt(fan_in)``), and the RMSNorm weights are ones.
+    One ``numpy`` generator, the parameters in ``tx_crf_param_shapes``'
+    order."""
+    model = DotDict(model)
+    rng = np.random.default_rng(int(seed) & (2**64 - 1))
+    beta = model.encoder.deepnorm_beta
+    d = model.encoder.d_model
+
+    def xavier(shape, gain):
+        std = gain * np.sqrt(2.0 / (shape[0] + shape[1]))
+        return rng.normal(0.0, std, shape).astype(np.float32)
+
+    def uniform(shape, fan_in):
+        bound = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    out: dict[str, np.ndarray] = {}
+    for name, shape in tx_crf_param_shapes(model).items():
+        leaf = name.rsplit(".", 2)[-2]
+        if leaf in ("norm1", "norm2"):
+            out[name] = np.ones(shape, np.float32)
+        elif leaf == "Wqkv":
+            out[name] = np.concatenate([xavier((2 * d, d), 1.0),
+                                        xavier((d, d), beta)])
+        elif leaf in ("fc1", "fc2") or name.endswith("out_proj.weight"):
+            out[name] = xavier(shape, beta)
+        elif name.startswith("stem."):
+            i = int(name.split(".")[1])
+            s = model.stem[i]
+            out[name] = uniform(shape, s.insize * s.winlen)
+        else:
+            out[name] = uniform(shape, d)
+    return out

@@ -27,6 +27,7 @@ from radian_tpu_torch.config import DotDict, default_config
 from radian_tpu_torch.models.checkpoint import params_from_flax
 from radian_tpu_torch.models.init import init_params
 from radian_tpu_torch.models.tcn import TCN
+from radian_tpu_torch.models.tx_crf import MODEL_TYPE, TxCrfModel
 from radian_tpu_torch.ops import tcn_conv
 
 
@@ -113,10 +114,18 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
 
 
 def build_model(config: DotDict | None = None,
-                compute_dtype: torch.dtype = torch.float32) -> SigToSeq:
-    """Construct a SigToSeq from a config (defaults to reference parity)."""
+                compute_dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Construct the config's model: ``TxCrfModel`` where ``model.type``
+    is ``bonito_tx_crf``, else (no ``type``) a SigToSeq (defaults to
+    reference parity)."""
     cfg = config if config is not None else default_config()
     m = cfg.model
+    kind = m.get("type")
+    if kind == MODEL_TYPE:
+        return TxCrfModel(m, compute_dtype)
+    if kind is not None:
+        raise ValueError(f"model.type {kind!r}: {MODEL_TYPE!r}, or none "
+                         "for radian's SigToSeq")
     return SigToSeq(
         relu_units=m.relu_units,
         softmax_units=m.softmax_units,

@@ -1,0 +1,217 @@
+"""Bonito's transformer-CRF basecaller, the port's second model family
+(``model.type: bonito_tx_crf`` in the config).
+
+``[N, C]`` normalised chunks → ``[N, T, 4^state_len·5]`` CRF scores,
+``T = C / stride`` (the benchmark's plain reference,
+``benchmark/core/reference_tx_crf.py``, states the equations and the
+departures from the published model):
+
+- ``stem``: 1-d convolutions with bias and swish, ``[N, 1, C] → [N,
+  d_model, T′]``, then channels-last ``[N, T′, d_model]``;
+- ``encoder``: DeepNorm post-norm layers, each windowed multi-head
+  attention with rotary embeddings and a SwiGLU feed-forward;
+- ``upsample``: a linear layer to ``scale_factor`` tokens a token;
+- ``crf``: a linear layer to the move scores, ``tanh``·``scale``, the
+  blank score put in front of each state's 4 move scores.
+
+The windowed attention runs through ``F.scaled_dot_product_attention``
+on key bands: queries in blocks of ``ATTN_BLOCK``, each block against
+the band of keys its window can reach (``ATTN_BLOCK + left + right``
+keys, rounded up to 8) under a band mask that is the same for every
+chunk of a length; no ``T′×T′`` mask is made.  In bfloat16 the
+residual sums, the RMSNorms and the rotary embedding run in float32 and
+round once.  Each layer's attention (``Wqkv``, rotary, the banded
+attention, ``out_proj``) is the span ``radian.tx.attention``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from radian_tpu_torch.config import DotDict
+from radian_tpu_torch.utils import profiling
+
+MODEL_TYPE = "bonito_tx_crf"
+ATTN_BLOCK = 128  # queries a band
+
+
+def band_mask(t: int, left: int, right: int, device) -> torch.Tensor:
+    """``[n_blocks, ATTN_BLOCK, W]`` bool: query ``r`` of block ``b``
+    (position ``b·ATTN_BLOCK + r``) may see key ``c`` of its band
+    (position ``b·ATTN_BLOCK − left + c``): inside the window and the
+    chunk.  A padding query sees its own band column ``r + left`` alone,
+    so that no row is empty."""
+    n_blocks = -(-t // ATTN_BLOCK)
+    width = -(-(ATTN_BLOCK + left + right) // 8) * 8
+    r = torch.arange(ATTN_BLOCK, device=device)[:, None]
+    c = torch.arange(width, device=device)[None, :]
+    b = torch.arange(n_blocks, device=device)[:, None, None]
+    key = b * ATTN_BLOCK - left + c
+    ok = (c >= r) & (c <= r + left + right) & (key >= 0) & (key < t)
+    pad_query = (b * ATTN_BLOCK + r) >= t
+    return ok | (pad_query & (c == r + left))
+
+
+def band_attention(q, k, v, left: int, right: int, mask: torch.Tensor):
+    """Softmax attention of ``[N, T′, H, D]`` queries over the keys
+    ``j`` with ``i − left ≤ j ≤ i + right``, scale ``1/sqrt(D)``."""
+    n, t, h, d = q.shape
+    n_blocks, block, width = mask.shape
+    tq = n_blocks * block
+    qb = F.pad(q.transpose(1, 2), (0, 0, 0, tq - t))
+    qb = qb.reshape(n, h * n_blocks, block, d)
+
+    def bands(x):
+        x = F.pad(x.transpose(1, 2), (0, 0, left, tq - t + width - block
+                                      - left))
+        x = x.unfold(2, width, block)  # [N, H, n_blocks, D, width]
+        return x.transpose(-1, -2).reshape(n, h * n_blocks, width, d)
+
+    m = mask.expand(h, n_blocks, block, width).reshape(h * n_blocks, block,
+                                                       width)
+    o = F.scaled_dot_product_attention(qb, bands(k), bands(v), attn_mask=m)
+    return o.reshape(n, h, tq, d)[:, :, :t].transpose(1, 2)
+
+
+def rotary(x: torch.Tensor, base: float) -> torch.Tensor:
+    """Rotary embedding of ``[N, T, H, D]`` at positions ``0…T−1``
+    (non-interleaved halves), computed in float32, in ``x``'s dtype."""
+    t, d = x.shape[1], x.shape[-1]
+    inv = 1.0 / base ** (torch.arange(0, d, 2, device=x.device,
+                                      dtype=torch.float32) / d)
+    ang = torch.arange(t, device=x.device, dtype=torch.float32)[:, None] * inv
+    cos, sin = ang.cos()[:, None, :], ang.sin()[:, None, :]
+    xf = x.float()
+    x1, x2 = xf[..., :d // 2], xf[..., d // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     -1).to(x.dtype)
+
+
+class AddRMSNorm(nn.Module):
+    """DeepNorm's ``RMSNorm(y + α·x)``, the sum and the norm in float32,
+    rounded once to ``x``'s dtype."""
+
+    def __init__(self, d: int, alpha: float, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d))
+        self.alpha, self.eps = alpha, eps
+
+    def forward(self, y, x):
+        h = y.float() + self.alpha * x.float()
+        h = h * torch.rsqrt(h.pow(2).mean(-1, keepdim=True) + self.eps)
+        return (h * self.weight.float()).to(x.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, d_model: int, nhead: int):
+        super().__init__()
+        self.nhead = nhead
+        self.Wqkv = nn.Linear(d_model, 3 * d_model, bias=False)
+        self.out_proj = nn.Linear(d_model, d_model)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, d_model: int, dim_feedforward: int):
+        super().__init__()
+        self.fc1 = nn.Linear(d_model, 2 * dim_feedforward, bias=False)
+        self.fc2 = nn.Linear(dim_feedforward, d_model, bias=False)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, enc: DotDict):
+        super().__init__()
+        d = enc.d_model
+        self.self_attn = Attention(d, enc.nhead)
+        self.ff = FeedForward(d, enc.dim_feedforward)
+        self.norm1 = AddRMSNorm(d, enc.deepnorm_alpha, enc.norm_eps)
+        self.norm2 = AddRMSNorm(d, enc.deepnorm_alpha, enc.norm_eps)
+        self.left, self.right = enc.attn_window
+        self.rotary_base = enc.rotary_base
+
+    def attention(self, x, mask):
+        a = self.self_attn
+        n, t, d = x.shape
+        qkv = F.linear(x, a.Wqkv.weight).view(n, t, 3, a.nhead, -1)
+        q = rotary(qkv[:, :, 0], self.rotary_base)
+        k = rotary(qkv[:, :, 1], self.rotary_base)
+        o = band_attention(q, k, qkv[:, :, 2], self.left, self.right, mask)
+        return F.linear(o.reshape(n, t, d), a.out_proj.weight,
+                        a.out_proj.bias)
+
+    def forward(self, x, mask):
+        with profiling.span("radian.tx.attention", x.device):
+            a = self.attention(x, mask)
+        x = self.norm1(a, x)
+        y, gate = F.linear(x, self.ff.fc1.weight).chunk(2, -1)
+        return self.norm2(F.linear(y * F.silu(gate), self.ff.fc2.weight), x)
+
+
+class TxCrfModel(nn.Module):
+    """The transformer-CRF model of a ``bonito_tx_crf`` config's ``model``
+    section, its parameters in ``compute_dtype``."""
+
+    def __init__(self, model: DotDict,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or "
+                             "bfloat16")
+        self.compute_dtype = compute_dtype
+        self.stem = nn.ModuleList(
+            nn.Conv1d(s.insize, s.size, s.winlen, stride=s.stride,
+                      padding=s.padding) for s in model.stem)
+        enc = model.encoder
+        self.encoder = nn.ModuleList(EncoderLayer(enc)
+                                     for _ in range(enc.num_layers))
+        self.scale_factor = model.upsample.scale_factor
+        self.upsample = nn.Linear(enc.d_model,
+                                  self.scale_factor * enc.d_model)
+        crf = model.crf
+        if crf.n_base != 4:
+            raise ValueError(f"n_base {crf.n_base}: the CRF decode takes 4")
+        self.state_len = crf.state_len
+        self.crf = nn.Linear(enc.d_model, 4 ** crf.state_len * 4, bias=False)
+        self.crf_scale, self.blank_score = crf.scale, crf.blank_score
+        self.sample_stride = math.prod(s.stride for s in model.stem)
+        if self.sample_stride % self.scale_factor:
+            raise ValueError("the stem's stride must divide by the "
+                             "upsampling factor")
+        self.stride = self.sample_stride // self.scale_factor
+        self._masks: dict = {}
+        self.to(compute_dtype)
+
+    def _mask(self, t: int, device) -> torch.Tensor:
+        key = (t, str(device))
+        m = self._masks.get(key)
+        if m is None:
+            layer = self.encoder[0]
+            m = self._masks[key] = band_mask(t, layer.left, layer.right,
+                                             device)
+        return m
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``[N, C]`` normalised chunks → ``[N, T, 4^state_len·5]`` scores
+        in ``compute_dtype``."""
+        if x.is_cuda:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        h = x.to(self.compute_dtype)[:, None, :]
+        for conv in self.stem:
+            h = F.silu(conv(h))
+        h = h.transpose(1, 2).contiguous()
+        mask = self._mask(h.shape[1], h.device)
+        for layer in self.encoder:
+            h = layer(h, mask)
+        n, t, d = h.shape
+        h = self.upsample(h).view(n, t * self.scale_factor, d)
+        lin = self.crf(h).view(n, t * self.scale_factor, -1, 4)
+        scores = torch.empty((*lin.shape[:3], 5), dtype=lin.dtype,
+                             device=lin.device)
+        scores[..., 0] = self.blank_score
+        torch.tanh(lin, out=scores[..., 1:])
+        scores[..., 1:] *= self.crf_scale
+        return scores.view(n, t * self.scale_factor, -1)

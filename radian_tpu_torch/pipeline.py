@@ -29,6 +29,18 @@ window on its own and stitches the fragments on the host:
   window keeps a span of labels that partition the read, so the stitch
   is a concatenation, and ``chunk_lm`` fuses the LM into that decode.
 
+A ``bonito_tx_crf`` model (``models/tx_crf.py``, Bonito's
+transformer-CRF basecaller) takes its own path through the same calls:
+each read is cut into the overlapping chunks of its config's
+``basecaller`` section (``ops/chunking.py``), the chunks of many reads
+fill batches of ``chunk_batch`` chunks, and each batch runs
+
+  MAD-normalise its whole reads → gather the chunks → the model's CRF
+  scores (float32 or bfloat16) → the Viterbi path (two CUDA kernels,
+  ``ops/crf_viterbi.py``)
+
+before the host stitches each read's kept steps into its string.
+
 The host does fast5 ingest, padding, label rendering, the stitch and
 fasta output, in batches or streaming.  On a mesh (``mesh=``, from
 ``parallel.make_mesh``) each padded batch's rows are split over the
@@ -58,9 +70,11 @@ from radian_tpu_torch.io.fast5 import Fast5Read, iter_fast5_dir
 from radian_tpu_torch.io.fasta import FastaWriter
 from radian_tpu_torch.lm.kmer import KmerLM, load_kmer_json
 from radian_tpu_torch.models.checkpoint import load_params_npz, params_from_flax
-from radian_tpu_torch.models.init import init_params
+from radian_tpu_torch.models.init import init_params, init_tx_crf
 from radian_tpu_torch.models.keras_import import load_keras_h5
 from radian_tpu_torch.models.sig2seq import SigToSeq, build_model
+from radian_tpu_torch.models.tx_crf import MODEL_TYPE, TxCrfModel
+from radian_tpu_torch.ops import chunking
 from radian_tpu_torch.ops.assembly import assemble_matrices, row_sum
 from radian_tpu_torch.ops.beam_cuda import (
     MAX_BEAM,
@@ -83,6 +97,7 @@ from radian_tpu_torch.ops.consensus import (
 from radian_tpu_torch.ops.consensus_device import (
     assemble_fragments_device_batch,
 )
+from radian_tpu_torch.ops.crf_viterbi import viterbi_path
 from radian_tpu_torch.ops.preprocess import (
     bucket_length,
     mad_normalise,
@@ -166,6 +181,9 @@ class BasecallOptions:
     every window and assembles them by ``assembly_mode`` ('first', the
     reference's, or 'mean').  'mean' and a geometry the fast forwards
     cannot take always run the windowed forward.
+
+    A ``bonito_tx_crf`` model takes ``chunk_batch``, ``outlier_clip``
+    and ``bucket_quantum`` (its reads' padding) alone.
     """
 
     chunk_len: int = 1024
@@ -197,6 +215,9 @@ class BasecallOptions:
     # LM table storage: 'auto' = bfloat16 when the forward runs in
     # bfloat16, float32 otherwise; the fusion runs in float32 on the rows
     lm_table_dtype: str = "auto"  # 'auto' | 'float32' | 'bfloat16'
+    # chunks a batch of a bonito_tx_crf model (its config's basecaller
+    # section sets the chunk's samples and overlap)
+    chunk_batch: int = 64
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -233,6 +254,16 @@ def _on(device: torch.device):
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+class CrfGeometry(NamedTuple):
+    """A ``bonito_tx_crf`` model's chunks: samples, overlap, samples a
+    decoded step, CRF state length."""
+
+    size: int
+    overlap: int
+    step: int
+    state_len: int
 
 
 class _ShardedBatch(NamedTuple):
@@ -546,6 +577,13 @@ class Basecaller:
     slice again and keeps one copy.  Here the first device of each model
     row (``Mesh.data_devices``) runs the slice, once: the same strings,
     with none of the redundant copies (a deliberate deviation).
+
+    A config whose ``model.type`` is ``bonito_tx_crf`` builds the
+    transformer-CRF model and its chunk path (module docstring): one
+    replica, no LM, the chunk geometry of the config's ``basecaller``
+    section (``chunksize``, ``overlap``) and ``options.chunk_batch``
+    chunks a batch; ``self.crf`` holds that geometry (None for radian's
+    model).
     """
 
     def __init__(
@@ -590,6 +628,52 @@ class Basecaller:
         self.model = build_model(self.config, compute_dtype)
         self.model.load_state_dict(params)
         self.model.to(self.device).eval()
+        self.crf = (self._crf_setup(len(devices)) if isinstance(
+            self.model, TxCrfModel) else None)
+        if self.crf is None:
+            self._tcn_setup(lm is not None)
+        # one replica a data device: ``self`` on ``device`` (it serves the
+        # unsharded helpers), copies of its model and tables elsewhere
+        home = devices.index(self.device)
+        self._replicas = [self if i == home else self._replica(d)
+                          for i, d in enumerate(devices)]
+        # two threads a replica (on a mesh of several): one slice's host
+        # copy waits while the next batch's slice is queued
+        self._shard_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=2 * len(devices), thread_name_prefix="radian-shard")
+        # the sequence number of a call, which its spans carry
+        self._calls = itertools.count()
+
+    def _crf_setup(self, n_devices: int) -> CrfGeometry:
+        """The transformer-CRF model's chunk geometry, checked."""
+        o = self.options
+        if self.lm_fusion is not None:
+            raise ValueError(f"a {MODEL_TYPE} model decodes without an LM")
+        if n_devices != 1:
+            raise NotImplementedError(
+                f"a {MODEL_TYPE} model runs on one device, not a mesh")
+        if o.decode_type != "global":
+            raise ValueError(f"decode_type={o.decode_type!r} is radian's; a "
+                             f"{MODEL_TYPE} model chunks by its config's "
+                             "basecaller section")
+        if o.chunk_batch < 1:
+            raise ValueError(f"chunk_batch {o.chunk_batch} < 1")
+        bc = self.config.get("basecaller")
+        if bc is None:
+            raise ValueError(f"a {MODEL_TYPE} config needs a basecaller "
+                             "section (chunksize, overlap)")
+        size, overlap = int(bc.chunksize), int(bc.overlap)
+        if size % self.model.sample_stride or not 0 <= overlap < size:
+            raise ValueError(
+                f"chunksize {size} must be a multiple of the stem's stride "
+                f"{self.model.sample_stride}, overlap {overlap} in "
+                "[0, chunksize)")
+        return CrfGeometry(size, overlap, self.model.stride,
+                           self.model.state_len)
+
+    def _tcn_setup(self, has_lm: bool) -> None:
+        """Radian's forward and chunk geometry."""
+        o = self.options
         rf = self.model.receptive_field
         # global forward (radian_tpu/pipeline.py:705-726): the full-read
         # or strips forward where every kept row has a whole receptive
@@ -606,18 +690,7 @@ class Basecaller:
                 f"prep_mode={o.prep_mode!r} requires global decode, "
                 "'first' assembly, step | window, and window-step >= ctx "
                 f"({self.strip_ctx})")
-        self._chunk_setup(rf, lm is not None)
-        # one replica a data device: ``self`` on ``device`` (it serves the
-        # unsharded helpers), copies of its model and tables elsewhere
-        home = devices.index(self.device)
-        self._replicas = [self if i == home else self._replica(d)
-                          for i, d in enumerate(devices)]
-        # two threads a replica (on a mesh of several): one slice's host
-        # copy waits while the next batch's slice is queued
-        self._shard_pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=2 * len(devices), thread_name_prefix="radian-shard")
-        # the sequence number of a call, which its spans carry
-        self._calls = itertools.count()
+        self._chunk_setup(rf, has_lm)
 
     def _replica(self, device: torch.device) -> "Basecaller":
         """This Basecaller with its model and LM tables copied to
@@ -795,6 +868,30 @@ class Basecaller:
             crop_off=self.crop_off, stride=self.crop_stride,
             lm=self.lm_fusion if self.chunk_lm else None)
 
+    # the transformer-CRF path
+
+    @torch.inference_mode()
+    def crf_scores(self, reads: torch.Tensor, lengths: torch.Tensor,
+                   table: torch.Tensor):
+        """A chunk batch's device inputs (``ChunkBatch.host_arrays``) →
+        ``(scores [rows, T, 4^state_len·5], mads [R])``: each whole read
+        MAD-normalised, each row's chunk gathered from its read (a short
+        read repeated), the model over the rows."""
+        norm, mads = mad_normalise(reads, lengths, self.options.outlier_clip)
+        row, start = table[:, 0], table[:, 1]
+        idx = (start[:, None]
+               + torch.arange(self.crf.size, device=reads.device)) \
+            % lengths.long()[row][:, None]
+        return self.model(norm[row[:, None], idx]), mads
+
+    def chunk_batches(self, signals: Sequence[np.ndarray]):
+        """``[(read indices, ChunkBatch)]``: the chunks of the reads,
+        ``options.chunk_batch`` a batch (``ops/chunking.py``)."""
+        g = self.crf
+        return [(b.reads, b) for b in chunking.plan(
+            [len(x) for x in signals], size=g.size, overlap=g.overlap,
+            step=g.step, rows=self.options.chunk_batch)]
+
     # -- host orchestration ----------------------------------------------
 
     def _bucket(self, length: int) -> int:
@@ -843,13 +940,16 @@ class Basecaller:
     def pad_batch(self, idxs, bucket, signals):
         """One fixed-size padded batch on the device: ``read_batch`` rows
         of ``bucket`` samples (filler rows repeat the first read and are
-        discarded).  int16 signals travel as int16."""
-        padded, lengths = self._pad_host(idxs, bucket, signals)
-        return (torch.from_numpy(padded).to(self.device),
-                torch.from_numpy(lengths).to(self.device))
+        discarded).  int16 signals travel as int16.  For a chunk batch
+        (``bucket`` a ``ChunkBatch``) the arrays of its
+        ``host_arrays``."""
+        return tuple(torch.from_numpy(x).to(self.device)
+                     for x in self._pad_host(idxs, bucket, signals))
 
     def _pad_host(self, idxs, bucket, signals):
         """``pad_batch``'s arrays, on the host."""
+        if self.crf is not None:
+            return bucket.host_arrays(signals, self.options.bucket_quantum)
         n = self.options.read_batch
         real = len(idxs)
         dtypes = {np.asarray(signals[i]).dtype for i in idxs}
@@ -870,8 +970,12 @@ class Basecaller:
         results: list[str | None] = [None] * len(signals)
         with profiling.span("radian.call", self.device,
                             call=next(self._calls)):
-            with profiling.span("radian.batches"):
-                plan = self.batches(signals)
+            if self.crf is None:
+                with profiling.span("radian.batches"):
+                    plan = self.batches(signals)
+            else:
+                with profiling.span("radian.tx.chunk"):
+                    plan = self.chunk_batches(signals)
             # batch k+1 is dispatched before batch k is rendered, but with
             # one replica ``_dispatch_batch`` returns only once batch k+1
             # is back on the host (its copy back waits for the device), so
@@ -903,22 +1007,34 @@ class Basecaller:
         with profiling.span("radian.pad", batch=batch):
             host = self._pad_host(idxs, bucket, signals)
         if profiling.tracing():
-            profiling.count("reads", len(idxs))
-            profiling.count("real_samples", int(host[1][:len(idxs)].sum()))
-        padded, lengths = (split.parts(torch.from_numpy(x)) for x in host)
+            if self.crf is None:
+                profiling.count("reads", len(idxs))
+                profiling.count("real_samples",
+                                int(host[1][:len(idxs)].sum()))
+            else:
+                bucket.count(signals)
+        parts = [split.parts(torch.from_numpy(x)) for x in host]
         run = (_run_here if len(self._replicas) == 1
                else self._shard_pool.submit)
         parent = profiling.current()
         return _ShardedBatch(idxs, [
-            run(rep._slice_to_host, sig, ln, bucket, parent, batch)
-            for rep, (sig, _), (ln, _) in zip(self._replicas, padded,
-                                               lengths)], batch)
+            run(rep._slice_to_host, [x for x, _ in arrays], bucket, parent,
+                batch)
+            for rep, *arrays in zip(self._replicas, *parts)], batch)
 
     @torch.inference_mode()
-    def _device_batch(self, padded, lengths, bucket):
+    def _device_batch(self, padded, lengths, bucket, table=None):
         """One padded batch's device work on ``self.device`` → ``(mode,
-        mads, packed labels, windows a read, n_labels or None)``."""
+        mads, packed labels, windows a read, n_labels or None)``; a chunk
+        batch's → ``("crf", mads, paths, its ChunkBatch, None)``."""
         o, dev = self.options, self.device
+        if self.crf is not None:
+            with profiling.span("radian.forward", dev):
+                scores, mads = self.crf_scores(padded, lengths, table)
+            with profiling.span("radian.decode", dev):
+                path = viterbi_path(scores[:bucket.n_chunks],
+                                    self.crf.state_len)
+            return "crf", mads, path, bucket, None
         if o.decode_type == "global":
             with profiling.span("radian.forward", dev):
                 mats, t_reads, mads = self.forward(padded, lengths)
@@ -943,16 +1059,17 @@ class Basecaller:
             packed, _ = _decode_windows(probs, n_wins, pad_ends, opts=o)
         return "chunk", mads, packed, n_wins, None
 
-    def _slice_to_host(self, padded: torch.Tensor, lengths: torch.Tensor,
-                       bucket: int, parent=None, batch=None):
-        """A mesh slice, on a shard thread: its host rows copied to this
-        replica's device and through its device work, the record copied
-        back to the host (``parent`` and ``batch``: its spans')."""
+    def _slice_to_host(self, host: list[torch.Tensor], bucket, parent=None,
+                       batch=None):
+        """A mesh slice, on a shard thread: its host arrays (``_pad_host``'s
+        rows) copied to this replica's device and through its device
+        work, the record copied back to the host (``parent`` and
+        ``batch``: its spans')."""
         with _on(self.device), profiling.within(parent, batch):
             with profiling.span("radian.h2d", self.device):
-                padded = padded.to(self.device)
-                lengths = lengths.to(self.device)
-            mode, *rec = self._device_batch(padded, lengths, bucket)
+                arrays = [x.to(self.device) for x in host]
+            mode, *rec = self._device_batch(*arrays[:2], bucket,
+                                            *arrays[2:])
             with profiling.span("radian.d2h", self.device):
                 return (mode, *map(_host, rec))
 
@@ -963,9 +1080,10 @@ class Basecaller:
         mode = pending[0]
         on_device = (mode == "chunk" and not self.chunk_tiled
                      and self.options.consensus == "device")
-        with profiling.span("radian.render" if mode == "global"
-                            else "radian.stitch",
-                            self.device if on_device else None, batch=batch):
+        name = {"global": "radian.render", "chunk": "radian.stitch",
+                "crf": "radian.tx.stitch"}[mode]
+        with profiling.span(name, self.device if on_device else None,
+                            batch=batch):
             self._render(pending, results)
 
     def _render(self, pending, results) -> None:
@@ -974,6 +1092,10 @@ class Basecaller:
         mads = _host(mads)
         bad = ~np.isfinite(mads) | (mads == 0)
         packed = _host(packed)
+        if mode == "crf":
+            # ``packed``: the paths; ``n_wins``: the ChunkBatch
+            n_wins.stitch(packed, bad, results)
+            return
         if mode == "global":
             rev = unpack_labels(packed)
             for j, i in enumerate(idxs):
@@ -1044,6 +1166,9 @@ class Basecaller:
         finished reads is written as it completes.  Returns
         ``(written, total)``.
         """
+        if self.crf is not None:
+            raise NotImplementedError(
+                f"streaming a {MODEL_TYPE} model: use basecall_signals")
         pending: dict[int, list[tuple[int, np.ndarray]]] = {}
         results: dict[int, str | None] = {}
         ids: dict[int, str] = {}
@@ -1143,6 +1268,9 @@ def load_basecaller(
     ``checkpoint`` is a flax-layout ``.npz`` (the JAX package's format)
     or the reference's Keras weights ``.h5`` (needs ``h5py``);
     ``rna_model`` the reference's k-mer LM JSON (None or 'None': no LM).
+    A ``bonito_tx_crf`` config takes an ``.npz`` of ``TxCrfModel``'s
+    state dict, or none: Bonito's init for ``seed`` (published Bonito
+    weights do not load yet).
     """
     device = resolve_device(device)
     if config_path is None:
@@ -1151,7 +1279,17 @@ def load_basecaller(
         from radian_tpu_torch.config import get_config
 
         config = get_config(config_path)
-    if checkpoint is None:
+    if config.model.get("type") == MODEL_TYPE:
+        if checkpoint is None:
+            weights = init_tx_crf(config.model, seed)
+        elif str(checkpoint).endswith(".npz"):
+            weights = load_params_npz(checkpoint)
+        else:
+            raise ValueError(f"a {MODEL_TYPE} checkpoint is an .npz of its "
+                             f"state dict, not {checkpoint}")
+        params = {k: torch.from_numpy(np.asarray(v))
+                  for k, v in weights.items()}
+    elif checkpoint is None:
         params = params_from_flax(init_params(config, seed))
     elif str(checkpoint).endswith(".h5"):
         params = params_from_flax(load_keras_h5(checkpoint, config))
