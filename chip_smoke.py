@@ -63,12 +63,25 @@ card, and checks them:
   5d. tx      Bonito's v5 transformer-CRF model at its published widths
               (seeded): 5 reads through the Basecaller in 16-chunk
               batches ending on a partial one, the Viterbi kernels
-              launched once a batch; the kernels against the plain
+              launched once a batch and the attention kernel once a
+              layer a batch; the kernels against the plain
               Viterbi on each batch's bf16 scores (bit-equal paths), and
               on the first batch's tiled to the main path's 512 chunks,
               timed there beside the bound; the bf16
               scores within the cell's score_gap of the f32 reference's
               on 4 chunks
+  5e. txa     the windowed attention kernel (csrc/tx_attention.cu) vs
+              its plain version on the card at [512, 1024, 8, 64] and
+              ragged lengths (5 chunks of 200 tokens, 3 of 5): rotated q
+              and k bit-equal to rotary()'s, the output within
+              TXA_MAX_FLIPS roundings; the whole bf16 forward's scores
+              on 16 chunks vs the band_attention path's (within
+              TXA_MAX_DP_SHARE of that path's gap from f32); launches a
+              forward (18 in bf16, none in f32) and no call of
+              F.scaled_dot_product_attention on the bf16 path (18 on the
+              f32 and band paths); ptxas registers, stack
+              and spills; timed beside its bound, the plain version and
+              the band path (library_ms)
   6. kernels  each no-LM kernel vs its plain version on the inputs the main
               path gave it (the first batch), timed with CUDA events,
               beside its bound (bytes or operations over the H100's peaks);
@@ -2192,7 +2205,8 @@ def tcn_phase(dev, flat) -> dict:
 # sup widths (the benchmark cell's configuration file), seeded with the
 # benchmark's Bonito init: reads whose chunks fill one 16-chunk batch and
 # end on a partial one, through the Basecaller (the Viterbi kernels a
-# batch), the kernels against the plain Viterbi on each batch's own bf16
+# batch, the attention kernel once a layer a batch), the kernels against
+# the plain Viterbi on each batch's own bf16
 # scores (bit-equal paths, backpointers and final states), again at the
 # main path's 512-chunk batch (the first batch's scores tiled 32 times:
 # ~10.7 GB of scores, offsets past 2^32) and timed there, and the bf16
@@ -2208,14 +2222,16 @@ TX_CONFIG = REPO / "benchmark" / "configs" / "bonito-tx-sup-v5-bf16.json"
 
 
 def tx_phase(dev, levels) -> dict:
-    """Phase 5d (above): the kernels' launches on the main path, their
-    paths against the plain version's, their time beside the bound, and
-    the bf16 scores' gap from the f32 reference."""
+    """Phase 5d (above): the kernels' launches on the main path (the
+    Viterbi kernels' and the attention kernel's), the Viterbi paths
+    against the plain version's, their time beside the bound, and the
+    bf16 scores' gap from the f32 reference."""
     import torch
 
     from benchmark.core import reference_tx_crf as ref
     from radian_tpu_torch.config import DotDict
     from radian_tpu_torch.ops import crf_viterbi as cv
+    from radian_tpu_torch.ops import tx_attention as txa
     from radian_tpu_torch.pipeline import Basecaller, BasecallOptions
 
     cfg = DotDict(json.loads(TX_CONFIG.read_text())["model_config"])
@@ -2226,15 +2242,22 @@ def tx_phase(dev, levels) -> dict:
     reads = synth_signals(np.random.default_rng(16), TX_LENGTHS, levels)
     plan = bc.chunk_batches(reads)
     cv.crf_viterbi.launches = cv.crf_backtrace.launches = 0
+    txa.tx_attention.launches = 0
     seqs = bc.basecall_signals(reads)
     torch.cuda.synchronize()
     launches = {"crf_viterbi": cv.crf_viterbi.launches,
                 "crf_backtrace": cv.crf_backtrace.launches}
+    txa_launches = txa.tx_attention.launches
     _line("tx-e2e", reads=len(reads), batches=len(plan),
           chunks=[b.n_chunks for _, b in plan],
-          lengths=[len(x) for x in seqs], launches=json.dumps(launches))
+          lengths=[len(x) for x in seqs], launches=json.dumps(launches),
+          tx_attention_launches=txa_launches)
     if any(v != len(plan) for v in launches.values()):
         _fail(f"the Viterbi kernels did not launch once a batch: {launches}")
+    if txa_launches != cfg.model.encoder.num_layers * len(plan):
+        _fail(f"tx_attention launched {txa_launches} times on the main "
+              f"path's {len(plan)} batches (want "
+              f"{cfg.model.encoder.num_layers} a batch)")
     if any(not x for x in seqs):
         _fail("a transformer-CRF read came back empty or skipped")
     if plan[0][1].n_chunks != TX_BATCH or plan[-1][1].n_chunks >= TX_BATCH:
@@ -2309,7 +2332,173 @@ def tx_phase(dev, levels) -> dict:
               f"(limit {limit})")
     return {"launches": launches, "ms": fwd_ms, "backtrace_ms": bt_ms,
             "plain_ms_16_chunks": plain_ms, "bound_ms": bound_ms,
-            "bound_by": by, "score_gap": gap}
+            "bound_by": by, "score_gap": gap,
+            "tx_attention_launches": txa_launches,
+            "batches": len(plan)}
+
+
+# phase 5e: the transformer-CRF windowed attention kernel
+# (csrc/tx_attention.cu) against its plain version on the card, on random
+# q, k, v of scale 2 at the published window (127, 128): the main path's
+# [512, 1024, 8, 64], then ragged lengths (5 chunks of 200 tokens: a tile
+# and a partial one; 3 of 5: under one step)
+TXA_CASES = ((512, 1024), (5, 200), (3, 5))
+# Both round each probability to bf16 before P.V and the output once; the
+# kernel's S and P.V sums run in another order than cuBLAS's, so a
+# probability near a rounding boundary can round the other way.  A
+# difference is counted against one flip of every probability (2^-8 of the
+# softmax-weighted mean of |v|) plus one ulp of the output: 1 = every
+# point flipped.  Readings on an H100: 1.089 at [512, 1024], 0.63 at 200
+TXA_MAX_FLIPS = 2.0
+# The whole bf16 forward's scores, kernel against the band_attention path
+# (autograd on), as a share of that path's own gap from the float32
+# forward on the same chunks: the two bf16 paths differ only by those
+# flips, carried through 18 layers, and must stay nearer each other than
+# bf16 is to float32
+TXA_MAX_DP_SHARE = 0.8
+TXA_CHUNKS = 16  # chunks of the whole-forward check
+
+
+def txa_phase(dev, levels, ptxas: list[str]) -> dict:
+    """Phase 5e (above): the kernel's rotated q and k bit-equal to the
+    plain version's, its output within TXA_MAX_FLIPS roundings, the whole
+    forward's scores within TXA_MAX_DP_SHARE of the band path's gap from
+    float32, its launches (18 a bf16 forward, none in float32), and its
+    time beside the bound, the plain version's and the band path's."""
+    import torch
+
+    from benchmark.core import reference_tx_crf as ref
+    from radian_tpu_torch.config import DotDict
+    from radian_tpu_torch.models.sig2seq import build_model
+    from radian_tpu_torch.models.tx_crf import band_attention, band_mask, rotary
+    from radian_tpu_torch.ops import tx_attention as txa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for ln in ptxas:
+        print(f"  ptxas tx_attention: {ln}")
+    cfg = DotDict(json.loads(TX_CONFIG.read_text())["model_config"])
+    enc = cfg.model.encoder
+    left, right = enc.attn_window
+    base, heads, d = enc.rotary_base, enc.nhead, enc.d_model // enc.nhead
+    out = {"ptxas": ptxas}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for n, t in TXA_CASES:
+        qkv = (torch.randn(n, t, 3, heads, d, generator=gen, device=dev)
+               * 2).to(torch.bfloat16)
+        cos, sin = txa.rotary_table(t, d, base, dev)
+        rot = torch.empty(n, t, 2, heads, d, dtype=torch.bfloat16, device=dev)
+        got = txa.tx_attention(qkv, cos, sin, left, right, rotated=rot)
+        torch.cuda.synchronize()
+        rot_equal = all(torch.equal(rot[:, :, i], rotary(qkv[:, :, i], base))
+                        and torch.equal(rot[:, :, i],
+                                        txa.rotate(qkv[:, :, i], cos, sin))
+                        for i in (0, 1))
+        want = txa.tx_attention_plain(qkv, cos, sin, left, right)
+        abs_v = qkv.clone()
+        abs_v[:, :, 2] = abs_v[:, :, 2].abs()
+        room = (_ulp(want) + 2.0 ** -8 * txa.tx_attention_plain(
+            abs_v, cos, sin, left, right).float())
+        del abs_v
+        diff = (got.float() - want.float()).abs()
+        flips = float(torch.where(diff > 0, diff / room, 0.0).max())
+        case = {"rot_equal": rot_equal, "max_flips": flips,
+                "share_differing": float((diff > 0).float().mean())}
+        del room, diff, rot, got, want
+        if (n, t) == TXA_CASES[0]:
+            mask = band_mask(t, left, right, dev)
+
+            def band():
+                q = rotary(qkv[:, :, 0], base)
+                k = rotary(qkv[:, :, 1], base)
+                return band_attention(q, k, qkv[:, :, 2], left, right,
+                                      mask).reshape(n, t, -1)
+
+            case["ms"] = cuda_ms(lambda: txa.tx_attention(
+                qkv, cos, sin, left, right), 10)
+            case["plain_ms"] = cuda_ms(lambda: txa.tx_attention_plain(
+                qkv, cos, sin, left, right), 1)
+            case["library_ms"] = cuda_ms(band, 3)
+            # q, k and v read once and o written once
+            case["bound_ms"], case["bound_by"] = bound(4 * n * t * heads * d
+                                                       * 2, 0)
+        _line("txa", chunks=n, tokens=t, heads=heads, head_dim=d,
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                 for k, v in case.items()})
+        if not rot_equal:
+            _fail(f"the kernel's rotated q, k differ from rotary()'s "
+                  f"([{n}, {t}])")
+        if not flips <= TXA_MAX_FLIPS:
+            _fail(f"tx_attention is {flips} roundings from its plain "
+                  f"version ([{n}, {t}])")
+        if (n, t) == TXA_CASES[0]:
+            out.update(case)
+        else:
+            out.setdefault("ragged", {})[f"{n}x{t}"] = case
+        del qkv
+    # the whole forward: kernel, band path (autograd on), float32
+    weights = ref.bonito_init(cfg.model, 16)
+    models = {}
+    for dt in (torch.bfloat16, torch.float32):
+        models[dt] = build_model(cfg, compute_dtype=dt)
+        models[dt].load_state_dict({k: torch.from_numpy(v)
+                                    for k, v in weights.items()})
+        models[dt].to(dev).eval()
+    rng = np.random.default_rng(23)
+    size = cfg.basecaller.chunksize
+    x = torch.from_numpy(np.stack([
+        ref.mad_normalise(sig, 4.0).astype(np.float32) for sig in
+        synth_signals(rng, [size] * TXA_CHUNKS, levels)])).to(dev)
+    # F.scaled_dot_product_attention's calls a forward, by path
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_calls = {}
+
+    def counted(*args, **kwargs):
+        sdpa_calls[path] = sdpa_calls.get(path, 0) + 1
+        return sdpa(*args, **kwargs)
+
+    launches = {}
+    torch.nn.functional.scaled_dot_product_attention = counted
+    try:
+        with torch.inference_mode():
+            for dt in (torch.bfloat16, torch.float32):
+                path = str(dt).split(".")[1]
+                txa.tx_attention.launches = 0
+                s = models[dt](x).float()
+                launches[path] = txa.tx_attention.launches
+                if dt == torch.bfloat16:
+                    s_kernel = s
+                else:
+                    s_f32 = s
+        bf16 = models[torch.bfloat16]
+        bf16.requires_grad_(False)
+        path = "band"
+        with torch.enable_grad():
+            s_band = bf16(x).float()
+        bf16.requires_grad_(True)
+    finally:
+        torch.nn.functional.scaled_dot_product_attention = sdpa
+    dp = float((s_kernel - s_band).abs().max())
+    dp_band = float((s_band - s_f32).abs().max())
+    dp_kernel = float((s_kernel - s_f32).abs().max())
+    _line("txa-forward", chunks=TXA_CHUNKS, max_abs_ds_vs_band=f"{dp:.4f}",
+          max_abs_ds_band_vs_f32=f"{dp_band:.4f}",
+          max_abs_ds_vs_f32=f"{dp_kernel:.4f}",
+          share=f"{dp / dp_band:.3f}", launches=json.dumps(launches),
+          sdpa_calls=json.dumps(sdpa_calls))
+    if not dp <= TXA_MAX_DP_SHARE * dp_band:
+        _fail(f"the bf16 forward's scores are {dp} from the band path's, "
+              f"over {TXA_MAX_DP_SHARE} of its {dp_band} from float32")
+    layers = enc.num_layers
+    if launches != {"bfloat16": layers, "float32": 0}:
+        _fail(f"tx_attention launched {launches} a forward (want "
+              f"{layers} in bf16, 0 in float32)")
+    if sdpa_calls != {"float32": layers, "band": layers}:
+        _fail(f"F.scaled_dot_product_attention ran {sdpa_calls} a forward "
+              f"(want none on the bf16 kernel path)")
+    out.update(forward_launches=launches, sdpa_calls=sdpa_calls,
+               max_abs_ds_vs_band=dp, max_abs_ds_band_vs_f32=dp_band)
+    return out
 
 
 def synth_signals(rng, lengths, levels):
@@ -2508,8 +2697,17 @@ def main() -> int:
 
     # 5d. the transformer-CRF model and its Viterbi kernels ---------------
     tx = tx_phase(dev, levels)
+    tx_attention_launches = tx.pop("tx_attention_launches")
+    tx_attention_batches = tx.pop("batches")
 
     phase_done("5d")
+
+    # 5e. the transformer-CRF windowed attention kernel -------------------
+    txa_out = txa_phase(dev, levels, ptxas_summary(
+        report["tx_attention"]["ptxas"]) if "tx_attention" in report
+        else ["cached"])
+
+    phase_done("5e")
 
     # 6. kernels on the main path's inputs (first batch) -----------------
     mats, t_reads = first
@@ -2679,6 +2877,12 @@ def main() -> int:
         {"name": "crf_viterbi", "route": "cuda",
          "source": "radian_tpu_torch/csrc/crf_viterbi.cu",
          "replaces": "none (the transformer-CRF model's decode)", **tx},
+        {"name": "tx_attention", "route": "cuda",
+         "source": "radian_tpu_torch/csrc/tx_attention.cu",
+         "replaces": "none (the transformer-CRF model's attention: rotary "
+                     "+ band_attention around SDPA here)", **txa_out,
+         "launches": tx_attention_launches,
+         "launch_batches": tx_attention_batches},
     ]
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"train": train}))

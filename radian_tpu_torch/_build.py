@@ -60,6 +60,11 @@ _SIGNATURES = {
         "radian_crf_backtrace": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
         "radian_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "tx_attention": {
+        "radian_tx_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                 _I, _P], _I),
+        "radian_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
     "seqmatch": {
         "LongestBlock": ([_P, _L, _P, _L, _P], None),
         "AssembleFragments": ([_P, _P, _L, _P], _L),

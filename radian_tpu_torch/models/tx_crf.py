@@ -14,14 +14,27 @@ departures from the published model):
 - ``crf``: a linear layer to the move scores, ``tanh``·``scale``, the
   blank score put in front of each state's 4 move scores.
 
-The windowed attention runs through ``F.scaled_dot_product_attention``
-on key bands: queries in blocks of ``ATTN_BLOCK``, each block against
-the band of keys its window can reach (``ATTN_BLOCK + left + right``
-keys, rounded up to 8) under a band mask that is the same for every
-chunk of a length; no ``T′×T′`` mask is made.  In bfloat16 the
-residual sums, the RMSNorms and the rotary embedding run in float32 and
-round once.  Each layer's attention (``Wqkv``, rotary, the banded
-attention, ``out_proj``) is the span ``radian.tx.attention``.
+The windowed attention takes one of two paths, by
+``ops/tx_attention.py``'s ``engages`` (no knob):
+
+- bf16 inference on the card (a CUDA input, a bf16 model, autograd off,
+  heads of 64, a window of at most 256 keys and 128 a side): one
+  hand-written kernel a layer, ``csrc/tx_attention.cu``, reads
+  ``Wqkv``'s output in place, applies the rotary embedding from a
+  cos/sin table cached by length and device, attends over the window
+  and writes ``[N, T′, d_model]`` for ``out_proj``;
+- everything else (float32, the CPU, training): ``rotary`` then
+  ``band_attention``, ``F.scaled_dot_product_attention`` on key bands:
+  queries in blocks of ``ATTN_BLOCK``, each block against the band of
+  keys its window can reach (``ATTN_BLOCK + left + right`` keys, rounded
+  up to 8) under a band mask that is the same for every chunk of a
+  length; no ``T′×T′`` mask is made.  This path is the kernel's
+  yardstick.
+
+In bfloat16 the residual sums, the RMSNorms and the rotary embedding run
+in float32 and round once, on both paths.  Each layer's attention
+(``Wqkv``, rotary, the windowed attention, ``out_proj``) is the span
+``radian.tx.attention``.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from radian_tpu_torch.config import DotDict
+from radian_tpu_torch.ops import tx_attention as txa
 from radian_tpu_torch.utils import profiling
 
 MODEL_TYPE = "bonito_tx_crf"
@@ -132,19 +146,24 @@ class EncoderLayer(nn.Module):
         self.left, self.right = enc.attn_window
         self.rotary_base = enc.rotary_base
 
-    def attention(self, x, mask):
+    def attention(self, x, mask, table):
+        """``table``: the kernel's ``(cos, sin)``, else ``mask`` for
+        ``band_attention``."""
         a = self.self_attn
         n, t, d = x.shape
         qkv = F.linear(x, a.Wqkv.weight).view(n, t, 3, a.nhead, -1)
-        q = rotary(qkv[:, :, 0], self.rotary_base)
-        k = rotary(qkv[:, :, 1], self.rotary_base)
-        o = band_attention(q, k, qkv[:, :, 2], self.left, self.right, mask)
-        return F.linear(o.reshape(n, t, d), a.out_proj.weight,
-                        a.out_proj.bias)
+        if table is not None:
+            o = txa.tx_attention(qkv, *table, self.left, self.right)
+        else:
+            q = rotary(qkv[:, :, 0], self.rotary_base)
+            k = rotary(qkv[:, :, 1], self.rotary_base)
+            o = band_attention(q, k, qkv[:, :, 2], self.left, self.right,
+                               mask).reshape(n, t, d)
+        return F.linear(o, a.out_proj.weight, a.out_proj.bias)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, table=None):
         with profiling.span("radian.tx.attention", x.device):
-            a = self.attention(x, mask)
+            a = self.attention(x, mask, table)
         x = self.norm1(a, x)
         y, gate = F.linear(x, self.ff.fc1.weight).chunk(2, -1)
         return self.norm2(F.linear(y * F.silu(gate), self.ff.fc2.weight), x)
@@ -182,6 +201,7 @@ class TxCrfModel(nn.Module):
                              "upsampling factor")
         self.stride = self.sample_stride // self.scale_factor
         self._masks: dict = {}
+        self._tables: dict = {}
         self.to(compute_dtype)
 
     def _mask(self, t: int, device) -> torch.Tensor:
@@ -193,6 +213,18 @@ class TxCrfModel(nn.Module):
                                              device)
         return m
 
+    def _table(self, t: int, device) -> tuple:
+        """The kernel's rotary ``(cos, sin)`` for ``t`` tokens, made once
+        a length and device."""
+        key = (t, str(device))
+        tab = self._tables.get(key)
+        if tab is None:
+            layer = self.encoder[0]
+            tab = self._tables[key] = txa.rotary_table(
+                t, layer.self_attn.Wqkv.weight.shape[1]
+                // layer.self_attn.nhead, layer.rotary_base, device)
+        return tab
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``[N, C]`` normalised chunks → ``[N, T, 4^state_len·5]`` scores
         in ``compute_dtype``."""
@@ -203,9 +235,12 @@ class TxCrfModel(nn.Module):
         for conv in self.stem:
             h = F.silu(conv(h))
         h = h.transpose(1, 2).contiguous()
-        mask = self._mask(h.shape[1], h.device)
+        if txa.engages(self, h):
+            mask, table = None, self._table(h.shape[1], h.device)
+        else:
+            mask, table = self._mask(h.shape[1], h.device), None
         for layer in self.encoder:
-            h = layer(h, mask)
+            h = layer(h, mask, table)
         n, t, d = h.shape
         h = self.upsample(h).view(n, t * self.scale_factor, d)
         lin = self.crf(h).view(n, t * self.scale_factor, -1, 4)
