@@ -702,8 +702,8 @@ def chunk_split(bc, reads, phase: str, heads: str) -> tuple:
         packed, n_lab = bc.chunk_decode(probs, geom)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        bc._collect_batch(("chunk", idxs, mads, packed, geom.n_dec, n_lab),
-                          {})
+        bc.path.render(bc, bc.path.batch(idxs, bucket), [
+            x.cpu().numpy() for x in (mads, packed, geom.n_dec, n_lab)], {})
         t.append(time.perf_counter())
         ms = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
         split.append(ms)
@@ -761,7 +761,8 @@ def e2e_chunk(dev, reads, small) -> dict:
     opts = BasecallOptions(decode_type="chunk", beam_width=6, read_batch=256,
                            bucket_quantum=4096)
     bc = load_basecaller(TRAINED, options=opts, device=dev)
-    if not bc.use_chunk_fused or bc.chunk_head != 256 or bc.chunk_tiled:
+    if (not bc.path.use_chunk_fused or bc.path.chunk_head != 256
+            or bc.path.chunk_tiled):
         _fail("the default chunk options did not pick the fused path")
     _, launches = timed_run(dev, bc, reads, "chunk", path="fused",
                             forward="f32")
@@ -822,12 +823,14 @@ def e2e_chunk_lm(dev, flat, reads, small, lm) -> dict:
         chunk_window_diff(dev, "chunk-lm-check", make, small)
         _fail("chunk_lm card strings differ from the port's CPU run (f32)")
     bc = make(dev, torch.bfloat16, 256)
-    if not (bc.chunk_tiled and bc.chunk_lm) or bc.crop_off != 640:
+    if not (bc.path.chunk_tiled and bc.path.chunk_lm) \
+            or bc.path.crop_off != 640:
         _fail("chunk_lm did not pick the tiled crop")
     _, launches = timed_run(dev, bc, reads, "chunk-lm", forward="bf16",
                             lm_table_dtype=str(bc.lm_fusion.t2.dtype)
                             .replace("torch.", ""),
-                            crop_off=bc.crop_off, crop_stride=bc.crop_stride)
+                            crop_off=bc.path.crop_off,
+                            crop_stride=bc.path.crop_stride)
     if (not launches["beam_decode_lm"] or not launches["beam_backtrace"]
             or launches["beam_decode"]):
         _fail(f"chunk_lm did not run through its kernels: {launches}")
@@ -1024,7 +1027,8 @@ def global_prep(dev, reads, small, opts) -> dict:
                      ("mean", dict(assembly_mode="mean"))):
         bc = load_basecaller(TRAINED, options=dataclasses.replace(opts, **kw),
                              device=dev)
-        if bc.use_fullread or bc.use_strips is not (name == "strips"):
+        if bc.path.use_fullread or bc.path.use_strips is not (
+                name == "strips"):
             _fail(f"prep {name} did not pick its forward")
         mats, t_reads = global_split(bc, reads, "global-prep", path=name)
         _, launches = timed_run(dev, bc, reads, "global-prep", warm=False,
@@ -1125,7 +1129,7 @@ def device_consensus(dev, reads, small) -> dict:
     want = load_basecaller(TRAINED, options=small_opts,
                            device="cpu").basecall_signals(small)
     bc = load_basecaller(TRAINED, options=small_opts, device=dev)
-    if not bc.use_chunk_fused or bc.chunk_tiled:
+    if not bc.path.use_chunk_fused or bc.path.chunk_tiled:
         _fail("device consensus did not run on the fused path")
     zero_launches()
     got = bc.basecall_signals(small)
@@ -1155,7 +1159,7 @@ def device_consensus(dev, reads, small) -> dict:
     del norm, probs_full
     packed, n_lab = bc.chunk_decode(probs, geom)
     torch.cuda.synchronize()
-    rec = ("chunk", idxs, mads, packed, geom.n_dec, n_lab)
+    rec = (mads, packed, geom.n_dec, n_lab)
     # the device stitch as the pipeline runs it (every read's votes in one
     # padded call) beside the C++ stitch and, for comparison, the device
     # stitch one read a call (the JAX package's way), fragments rendered
@@ -1174,7 +1178,9 @@ def device_consensus(dev, reads, small) -> dict:
         if c == "per_read":
             seqs[c] = per_read()
         else:
-            stitch[c]._collect_batch(rec, res)
+            p = stitch[c].path
+            p.render(stitch[c], p.batch(idxs, bucket),
+                     [x.cpu().numpy() for x in rec], res)
             seqs[c] = [res[i] for i in idxs]
         torch.cuda.synchronize()
         ms.setdefault(c, []).append((time.perf_counter() - t0) * 1e3)

@@ -41,8 +41,10 @@ fill batches of ``chunk_batch`` chunks, and each batch runs
 
 before the host stitches each read's kept steps into its string.
 
-The host does fast5 ingest, padding, label rendering, the stitch and
-fasta output, in batches or streaming.  On a mesh (``mesh=``, from
+Each of the three is one path object (``GlobalPath``, ``ChunkPath``,
+``CrfPath``) that a ``Basecaller`` chooses once; the host does fast5
+ingest, padding, label rendering, the stitch and fasta output, in
+batches or streaming, for any of them.  On a mesh (``mesh=``, from
 ``parallel.make_mesh``) each padded batch's rows are split over the
 ``data`` axis, one model replica on each device, each slice run and
 copied back from its own host thread, and the strings joined in row
@@ -160,8 +162,10 @@ def _stitch_pool() -> concurrent.futures.ThreadPoolExecutor:
 
 @dataclasses.dataclass(frozen=True)
 class BasecallOptions:
-    """Decode options; same fields and defaults as the JAX package's
-    ``BasecallOptions`` (reference basecall.py:19-37 CLI defaults).
+    """Decode options; the fields and defaults of the JAX package's
+    ``BasecallOptions`` (reference basecall.py:19-37 CLI defaults) but
+    its ``decode_backend`` and ``chunk_slab``: the port decodes with its
+    CUDA kernel, all of a batch's windows in one launch.
 
     Chunk mode (``decode_type='chunk'``): ``chunk_prep`` picks the path
     ('auto' = 'fused' when the geometry allows, else 'windows'; see the
@@ -169,10 +173,9 @@ class BasecallOptions:
     the fused paths' compaction (rounded down to a multiple of 4; a
     window over it raises on the host); ``chunk_crop`` and
     ``chunk_crop_stride`` set 'fullprobs'' tiled centre crop, and
-    ``chunk_lm`` fuses the LM into it.  ``chunk_slab`` is accepted for
-    symmetry: the port decodes all of a batch's windows in one launch.
-    ``consensus='device'`` stitches the untiled chunk paths' fragments
-    with ``ops/consensus_device.py`` on the Basecaller's device.
+    ``chunk_lm`` fuses the LM into it.  ``consensus='device'`` stitches
+    the untiled chunk paths' fragments with ``ops/consensus_device.py``
+    on the Basecaller's device.
 
     Global mode: ``prep_mode`` 'auto' takes the full-read forward where
     the geometry allows it (step | window, window - step >= the strips'
@@ -201,11 +204,9 @@ class BasecallOptions:
     # (quantum rounding above the top entry)
     bucket_lengths: tuple[int, ...] | None = None
     reads_per_fasta: int = 1000
-    decode_backend: str = "auto"  # 'auto' = the CUDA kernel (beam <= 16)
     consensus: str = "reference"
     prep_mode: str = "auto"  # 'auto' | 'fullread' | 'strips' | 'windows'
     chunk_prep: str = "auto"
-    chunk_slab: int = 4
     chunk_max_lab: int = 512
     chunk_crop: bool = True
     chunk_crop_stride: int = 2
@@ -237,11 +238,6 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
-def _host(x):
-    """A device tensor's values as a numpy array (None and arrays pass)."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
-
-
 def _run_here(fn, *args) -> concurrent.futures.Future:
     """``fn(*args)`` on the calling thread, as a finished future."""
     done = concurrent.futures.Future()
@@ -256,35 +252,54 @@ def _on(device: torch.device):
     return contextlib.nullcontext()
 
 
-class CrfGeometry(NamedTuple):
-    """A ``bonito_tx_crf`` model's chunks: samples, overlap, samples a
-    decoded step, CRF state length."""
+class ReadBatch(NamedTuple):
+    """One batch of radian's reads: ``reads`` (indices into the call's
+    signals) padded to ``bucket`` samples, in ``rows`` rows."""
 
-    size: int
-    overlap: int
-    step: int
-    state_len: int
+    reads: list
+    bucket: int
+    rows: int
+
+    def host_arrays(self, signals, quantum: int | None = None):
+        """``(signals [rows, bucket], lengths [rows] int32)``: filler rows
+        repeat the first read and are discarded; int16 signals stay
+        int16.  ``quantum``, a ``ChunkBatch``'s padding, is unused: the
+        bucket is set."""
+        real = len(self.reads)
+        dtypes = {np.asarray(signals[i]).dtype for i in self.reads}
+        host_dtype = (np.int16 if dtypes == {np.dtype(np.int16)}
+                      else np.float32)
+        padded = np.zeros((self.rows, self.bucket), host_dtype)
+        lengths = np.zeros(self.rows, np.int32)
+        for j in range(self.rows):
+            sig = signals[self.reads[j] if j < real else self.reads[0]]
+            padded[j, : len(sig)] = sig
+            lengths[j] = len(sig)
+        return padded, lengths
+
+    def count(self, signals) -> None:
+        """The batch's counters while tracing: its reads (``reads``) and
+        their samples (``real_samples``)."""
+        profiling.count("reads", len(self.reads))
+        profiling.count("real_samples",
+                        sum(len(signals[i]) for i in self.reads))
 
 
-class _ShardedBatch(NamedTuple):
-    """A dispatched batch: each future gives its row slice's host record
-    ``(mode, mads, packed, n_wins, n_lab)``, in row order; ``batch`` is
-    its number in its call, which its spans carry."""
+def _write_read(writer: FastaWriter, read_id: str, seq: str | None,
+                verbose: bool) -> int:
+    """Write one read's record, or say that it is skipped (``seq``
+    None); returns the records written."""
+    if seq is None:
+        if verbose:
+            print(f"{read_id} signal issue, skipping this read.")
+        return 0
+    writer.write(read_id, seq)
+    return 1
 
-    idxs: list
-    futures: list
-    batch: int | None = None
 
-    def record(self):
-        """The slices' records joined in row order, as the batch's record
-        ``(mode, idxs, mads, packed labels, windows a read, n_labels or
-        None)`` that ``Basecaller._collect_batch`` renders."""
-        parts = [f.result() for f in self.futures]
-        if len(parts) == 1:  # one replica: its arrays need no joining
-            return (parts[0][0], self.idxs, *parts[0][1:])
-        fields = zip(*(p[1:] for p in parts))
-        return (parts[0][0], self.idxs,
-                *(None if f[0] is None else np.concatenate(f) for f in fields))
+def _skipped(mads: np.ndarray) -> np.ndarray:
+    """The rows whose read is skipped: no finite, non-zero MAD."""
+    return ~np.isfinite(mads) | (mads == 0)
 
 
 def _first_renorm_trim(mats, n_wins, pad_ends, *, window: int, step: int):
@@ -472,215 +487,34 @@ def _compact_pack2(rev: torch.Tensor, cap: int) -> torch.Tensor:
     return pack_labels2(comp[:, :cap])
 
 
-def _chunk_fullread(model: SigToSeq, signals, lengths, *,
-                    opts: BasecallOptions):
-    """Normalise, then ONE causal forward over each whole read,
-    zero-extended by ``chunk_len`` so the tail window's padding exists in
-    it too → ``(norm [N, L], probs_full [N, L + chunk_len, 5], mads)``.
+# -- decode paths ------------------------------------------------------------
+#
+# A Basecaller runs one of three paths, chosen once by its constructor.
+# Each gives the orchestration its plan of batches, a batch's device run
+# on a replica (``run`` → the record's tensors) and the render of the
+# record's host arrays into strings (under ``render_span``, which takes
+# CUDA events where ``render_on_device``).  A path holds plain values
+# only, so mesh replicas share it.
 
-    The TCN is causal with receptive field RF, so a window's output at
-    in-window position ``p >= RF-1`` is the full-read output at its
-    absolute position.  A bfloat16 forward stores ``probs_full`` in
-    bfloat16, as the JAX package does.
-    """
-    norm, mads = mad_normalise(signals, lengths, opts.outlier_clip)
-    padded = F.pad(norm, (0, opts.chunk_len))
-    profiling.count("forward_samples", padded.numel())
-    probs_full = model(padded[..., None], probs=True)
-    if model.compute_dtype == torch.bfloat16:
-        probs_full = probs_full.to(torch.bfloat16)
-    return norm, probs_full, mads
+class _RadianPath:
+    """What radian's two paths share: the global forward's and the chunk
+    windows' geometry, checked (radian_tpu/pipeline.py:705-812), and
+    batches of reads bucketed by length."""
 
+    chunked = False  # each window decoded alone (ChunkPath)
+    plan_span = "radian.batches"
+    render_on_device = False
 
-def _chunk_window_probs(model: SigToSeq, norm, probs_full,
-                        geom: ChunkGeometry, *, head: int, window: int):
-    """Each decoded window's probabilities, ``[N·D, window, 5]`` float32.
-
-    Steps ``[head, window)`` come from the full-read pass at their
-    absolute positions; steps ``[0, head)`` from a zero-history forward
-    over the window's first ``head`` samples, the reference's window
-    start (``head`` = RF-1 rounded up to 128).  With ``head == 0``
-    ('fullprobs') every step comes from the full-read pass.
-    """
-    n, d = geom.starts.shape
-    dev = norm.device
-    rows = torch.arange(n, device=dev)[:, None]
-    tidx = geom.starts[..., None] + torch.arange(head, window, device=dev)
-    probs = probs_full[rows, tidx.reshape(n, -1)].reshape(
-        n * d, window - head, -1)
-    if head:
-        # norm is zero past a read's length; the clamp only keeps the
-        # index inside the bucket
-        hidx = geom.starts[..., None] + torch.arange(head, device=dev)
-        strips = norm[rows, torch.clamp(hidx.reshape(n, -1),
-                                        max=norm.shape[1] - 1)]
-        head_probs = _model_in_groups(model, strips.reshape(n * d, head))
-        probs = torch.cat([head_probs.to(probs.dtype), probs], 1)
-    return probs.float()
-
-
-def _chunk_decode(probs, geom: ChunkGeometry, *, opts: BasecallOptions,
-                  max_lab: int, crop_off: int, stride: int,
-                  lm: LMFusion | None):
-    """All of a batch's windows decoded in one launch → ``(2-bit-packed
-    compacted labels [N, D, max_lab/4] uint8, n_labels [N, D] int32)``.
-
-    With ``crop_off > 0`` (the tiled crop) only each window's kept span
-    of labels survives (``_crop_spans``) and the counts are of those.
-    Backtraced column ``k`` is time step ``window-1-k``.
-    """
-    n, d = geom.starts.shape
-    lens = geom.lens.reshape(-1)
-    if lm is None:
-        rev, n_lab, _ = beam_search_cuda(probs, lens, opts.beam_width)
-    else:
-        rev, n_lab, _ = beam_search_lm_cuda(probs, lens, opts.beam_width,
-                                            lm)
-    if crop_off > 0:
-        window = probs.shape[1]
-        lo, hi = _crop_spans(geom, step=opts.step_size, crop_off=crop_off,
-                             stride=stride)
-        t = window - 1 - torch.arange(window, device=rev.device)[None, :]
-        keep = (t >= lo.reshape(-1, 1)) & (t < hi.reshape(-1, 1))
-        rev = torch.where(keep, rev, -1)
-        n_lab = (rev >= 0).sum(1)
-    return (_compact_pack2(rev, max_lab).reshape(n, d, max_lab // 4),
-            n_lab.reshape(n, d).to(torch.int32))
-
-
-class Basecaller:
-    """Bucketed, batched basecaller, global or chunk mode.
-
-    ``lm`` (a ``KmerLM`` of ``options.context_len``) fuses the k-mer LM
-    into the global decode, or with ``options.chunk_lm`` into the tiled
-    chunk decode; its tables go to the device once, here, packed
-    (``KmerLM.compressed()``) when that is under
-    ``options.packed_lm_max_bytes`` and dense otherwise, in
-    ``options.lm_table_dtype``.
-
-    Pass ``mesh`` (a ``parallel.Mesh`` with a ``data`` axis, e.g. from
-    ``parallel.make_mesh``) to shard each read batch over its data
-    devices in one process, as the JAX package's ``shard_map`` does: one
-    replica of the model and the LM tables on each data device, each
-    batch's ``read_batch`` rows split into equal slices (so
-    ``read_batch`` must divide by the data size), each slice run and
-    copied to the host from its own thread, the strings joined in row
-    order.  Reads are independent, so the strings are the unsharded
-    ones.  ``device`` must be one of the mesh's devices: it holds the
-    unsharded helpers (``forward``, ``decode``, ``chunk_*``) and the
-    device consensus.  Without a mesh, the Basecaller is a mesh of one
-    replica on ``device``.
-
-    A ``model`` axis above 1 is accepted, as in the JAX package, whose
-    ``shard_map`` keeps the parameters replicated and the batch split
-    over ``data`` only, so each device of a model row computes its data
-    slice again and keeps one copy.  Here the first device of each model
-    row (``Mesh.data_devices``) runs the slice, once: the same strings,
-    with none of the redundant copies (a deliberate deviation).
-
-    A config whose ``model.type`` is ``bonito_tx_crf`` builds the
-    transformer-CRF model and its chunk path (module docstring): one
-    replica, no LM, the chunk geometry of the config's ``basecaller``
-    section (``chunksize``, ``overlap``) and ``options.chunk_batch``
-    chunks a batch; ``self.crf`` holds that geometry (None for radian's
-    model).
-    """
-
-    def __init__(
-        self,
-        params: dict[str, torch.Tensor],
-        config: DotDict | None = None,
-        lm: KmerLM | None = None,
-        options: BasecallOptions | None = None,
-        compute_dtype: torch.dtype = torch.float32,
-        mesh=None,
-        device: str | torch.device = "cuda",
-    ):
-        self.config = config if config is not None else default_config()
-        self.options = o = options or BasecallOptions()
-        if o.decode_type not in ("global", "chunk"):
-            raise ValueError(f"decode_type={o.decode_type!r}: 'global' or "
-                             "'chunk'")
-        if o.consensus not in ("reference", "device"):
-            raise ValueError(f"consensus={o.consensus!r}: 'reference' or "
-                             "'device'")
-        if o.decode_backend != "auto":
-            raise ValueError(f"decode_backend={o.decode_backend!r}: the "
-                             "port decodes with its CUDA kernel ('auto')")
-        if o.beam_width > MAX_BEAM:
-            raise NotImplementedError(
-                f"beam_width {o.beam_width} > {MAX_BEAM}: the reference's "
-                "int8 backpointers (parent*8 + append+1) overflow from beam "
-                "17 on, so wider beams have no reference to hold the port "
-                "to (ROADMAP.md, Queue 3: int8 backpointer overflow)")
-        if o.assembly_mode not in ("first", "mean"):
-            raise ValueError(f"assembly_mode={o.assembly_mode!r}: 'first' "
-                             "or 'mean'")
-        if o.prep_mode not in ("auto", "fullread", "strips", "windows"):
-            raise ValueError(f"prep_mode={o.prep_mode!r}: 'auto', "
-                             "'fullread', 'strips' or 'windows'")
-        self.device = resolve_device(device)
-        self.mesh = (make_mesh(data=1, devices=[self.device])
-                     if mesh is None else mesh)
-        devices = self._mesh_devices(self.mesh)
-        self.lm_fusion = (None if lm is None
-                          else self._lm_tables(lm, compute_dtype))
-        self.model = build_model(self.config, compute_dtype)
-        self.model.load_state_dict(params)
-        self.model.to(self.device).eval()
-        self.crf = (self._crf_setup(len(devices)) if isinstance(
-            self.model, TxCrfModel) else None)
-        if self.crf is None:
-            self._tcn_setup(lm is not None)
-        # one replica a data device: ``self`` on ``device`` (it serves the
-        # unsharded helpers), copies of its model and tables elsewhere
-        home = devices.index(self.device)
-        self._replicas = [self if i == home else self._replica(d)
-                          for i, d in enumerate(devices)]
-        # two threads a replica (on a mesh of several): one slice's host
-        # copy waits while the next batch's slice is queued
-        self._shard_pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=2 * len(devices), thread_name_prefix="radian-shard")
-        # the sequence number of a call, which its spans carry
-        self._calls = itertools.count()
-
-    def _crf_setup(self, n_devices: int) -> CrfGeometry:
-        """The transformer-CRF model's chunk geometry, checked."""
-        o = self.options
-        if self.lm_fusion is not None:
-            raise ValueError(f"a {MODEL_TYPE} model decodes without an LM")
-        if n_devices != 1:
-            raise NotImplementedError(
-                f"a {MODEL_TYPE} model runs on one device, not a mesh")
-        if o.decode_type != "global":
-            raise ValueError(f"decode_type={o.decode_type!r} is radian's; a "
-                             f"{MODEL_TYPE} model chunks by its config's "
-                             "basecaller section")
-        if o.chunk_batch < 1:
-            raise ValueError(f"chunk_batch {o.chunk_batch} < 1")
-        bc = self.config.get("basecaller")
-        if bc is None:
-            raise ValueError(f"a {MODEL_TYPE} config needs a basecaller "
-                             "section (chunksize, overlap)")
-        size, overlap = int(bc.chunksize), int(bc.overlap)
-        if size % self.model.sample_stride or not 0 <= overlap < size:
-            raise ValueError(
-                f"chunksize {size} must be a multiple of the stem's stride "
-                f"{self.model.sample_stride}, overlap {overlap} in "
-                "[0, chunksize)")
-        return CrfGeometry(size, overlap, self.model.stride,
-                           self.model.state_len)
-
-    def _tcn_setup(self, has_lm: bool) -> None:
-        """Radian's forward and chunk geometry."""
-        o = self.options
-        rf = self.model.receptive_field
+    def __init__(self, model: SigToSeq, options: BasecallOptions,
+                 has_lm: bool):
+        o = self.options = options
+        rf = model.receptive_field
         # global forward (radian_tpu/pipeline.py:705-726): the full-read
         # or strips forward where every kept row has a whole receptive
         # field inside its window, else the windowed forward
         self.strip_ctx = -(-(rf - 1 + o.step_size) // 128) * 128 \
             - o.step_size
-        fast_ok = (o.decode_type == "global" and o.assembly_mode == "first"
+        fast_ok = (not self.chunked and o.assembly_mode == "first"
                    and o.chunk_len % o.step_size == 0
                    and o.chunk_len - o.step_size >= self.strip_ctx)
         self.use_fullread = o.prep_mode in ("auto", "fullread") and fast_ok
@@ -690,46 +524,14 @@ class Basecaller:
                 f"prep_mode={o.prep_mode!r} requires global decode, "
                 "'first' assembly, step | window, and window-step >= ctx "
                 f"({self.strip_ctx})")
-        self._chunk_setup(rf, has_lm)
-
-    def _replica(self, device: torch.device) -> "Basecaller":
-        """This Basecaller with its model and LM tables copied to
-        ``device``."""
-        rep = copy.copy(self)
-        rep.device = device
-        rep.model = copy.deepcopy(self.model).to(device)
-        if self.lm_fusion is not None:
-            rep.lm_fusion = self.lm_fusion._replace(
-                t1=self.lm_fusion.t1.to(device),
-                t2=self.lm_fusion.t2.to(device))
-        return rep
-
-    def _mesh_devices(self, mesh) -> list[torch.device]:
-        """The mesh's data devices, checked as the JAX package checks a
-        mesh (radian_tpu/pipeline.py:632-640)."""
-        o = self.options
-        if "data" not in mesh.axis_names:
-            raise ValueError("inference mesh needs a 'data' axis")
-        if o.read_batch % mesh.shape["data"] != 0:
-            raise ValueError(
-                f"read_batch {o.read_batch} must be divisible by the mesh "
-                f"data axis ({mesh.shape['data']})")
-        devices = replicated_sharding(mesh)
-        if self.device not in devices:
-            raise ValueError(f"device {self.device} is not among the mesh's "
-                             f"data devices {[str(d) for d in devices]}")
-        return [resolve_device(d) for d in devices]
-
-    def _chunk_setup(self, rf: int, has_lm: bool) -> None:
-        """Chunk-mode geometry (radian_tpu/pipeline.py:761-812): the head
-        fix-up length, whether the fused path applies, the tiled crop's
-        offset and stride, and the ``chunk_lm`` checks."""
-        o = self.options
-        # zero-history fix-up: RF-1 rounded up to 128; none in 'fullprobs'
+        # chunk windows (radian_tpu/pipeline.py:761-812): the head fix-up
+        # length, whether the fused path applies, the tiled crop's offset
+        # and stride, and the ``chunk_lm`` checks.  Zero-history fix-up:
+        # RF-1 rounded up to 128; none in 'fullprobs'
         self.chunk_head = (0 if o.chunk_prep == "fullprobs"
                            else -(-(rf - 1) // 128) * 128)
         self.use_chunk_fused = (
-            o.decode_type == "chunk"
+            self.chunked
             and o.chunk_prep in ("auto", "fused", "fullprobs")
             and self.chunk_head < o.chunk_len
             and o.chunk_max_lab % 2 == 0)
@@ -773,6 +575,326 @@ class Basecaller:
         self.chunk_cap = min(o.chunk_max_lab - o.chunk_max_lab % 4,
                              o.chunk_len - o.chunk_len % 4)
 
+    def plan(self, bc: "Basecaller", signals) -> list:
+        """``[(read indices, ReadBatch)]`` of ``bc.batches``."""
+        return [(idxs, self.batch(idxs, b))
+                for idxs, b in bc.batches(signals)]
+
+    def batch(self, idxs, bucket: int) -> ReadBatch:
+        return ReadBatch(idxs, bucket, self.options.read_batch)
+
+    def check_streaming(self) -> None:
+        """Radian's batches stream."""
+
+
+class GlobalPath(_RadianPath):
+    """Radian's global mode: the forward the geometry allows, one beam
+    search over each read's assembled matrix, the labels rendered."""
+
+    render_span = "radian.render"
+
+    def run(self, bc: "Basecaller", batch: ReadBatch, padded, lengths):
+        """→ ``(mads, nibble-packed labels)``."""
+        with profiling.span("radian.forward", bc.device):
+            mats, t_reads, mads = bc.forward(padded, lengths)
+        with profiling.span("radian.decode", bc.device):
+            packed, _ = bc.decode(mats, t_reads)
+        return mads, packed
+
+    def render(self, bc: "Basecaller", batch: ReadBatch, record,
+               results) -> None:
+        mads, packed = record
+        bad = _skipped(mads)
+        rev = unpack_labels(packed)
+        for j, i in enumerate(batch.reads):
+            if not bad[j]:
+                results[i] = labels_to_seq(rev[j])  # already 5'→3'
+
+
+class ChunkPath(_RadianPath):
+    """Radian's chunk mode (module docstring): each window decoded alone,
+    the fragments stitched (or, tiled, concatenated) on the host or, with
+    ``consensus='device'``, on the Basecaller's device."""
+
+    chunked = True
+    render_span = "radian.stitch"
+
+    @property
+    def render_on_device(self) -> bool:
+        return not self.chunk_tiled and self.options.consensus == "device"
+
+    def run(self, bc: "Basecaller", batch: ReadBatch, padded, lengths):
+        """→ ``(mads, packed labels, windows a read, n_labels)`` on the
+        fused paths, ``(mads, packed labels, windows a read)`` on
+        'windows'."""
+        o, dev = self.options, bc.device
+        if self.use_chunk_fused:
+            geom = bc.chunk_geometry(lengths, batch.bucket)
+            with profiling.span("radian.forward", dev):
+                norm, probs_full, mads = bc.chunk_forward(padded, lengths)
+                probs = bc.chunk_window_probs(norm, probs_full, geom)
+            del norm, probs_full
+            with profiling.span("radian.decode", dev):
+                packed, n_lab = bc.chunk_decode(probs, geom)
+            return mads, packed, geom.n_dec, n_lab
+        with profiling.span("radian.forward", dev):
+            probs, n_wins, pad_ends, mads = _prep_and_model(
+                bc.model, padded, lengths, opts=o,
+                max_windows=max_windows_for(batch.bucket, o.chunk_len,
+                                            o.step_size))
+        with profiling.span("radian.decode", dev):
+            packed, _ = _decode_windows(probs, n_wins, pad_ends, opts=o)
+        return mads, packed, n_wins
+
+    def render(self, bc: "Basecaller", batch: ReadBatch, record,
+               results) -> None:
+        o, idxs = self.options, batch.reads
+        mads, packed, n_wins = record[:3]
+        n_lab = record[3] if self.use_chunk_fused else None
+        bad = _skipped(mads)
+        if n_lab is not None:
+            # the fused paths kept at most chunk_cap labels a window: a
+            # window over it would be cut short, so fail loudly instead
+            win_valid = np.arange(n_lab.shape[1])[None, :] < n_wins[:, None]
+            row_ok = (np.arange(n_lab.shape[0]) < len(idxs)) & ~bad
+            over = (n_lab > self.chunk_cap) & win_valid & row_ok[:, None]
+            if over.any():
+                raise RuntimeError(
+                    f"chunk window emitted {int(n_lab[over].max())} labels "
+                    f"> the effective compaction cap {self.chunk_cap} "
+                    f"(chunk_max_lab {o.chunk_max_lab} rounded to a "
+                    "multiple of 4); raise BasecallOptions.chunk_max_lab")
+        if self.chunk_tiled:
+            # the kept spans partition the read, so its 5'→3' string is
+            # every window's labels as stored (last emission first), the
+            # windows last to first: one pass over the whole batch
+            live = np.arange(n_lab.shape[1])[None, :] < n_wins[:, None]
+            labs = unpack_labels2(packed, np.where(live, n_lab, 0))
+            seqs = rows_to_seqs(labs[:, ::-1].reshape(len(labs), -1),
+                                reverse=False)
+            for j, i in enumerate(idxs):
+                if not bad[j]:
+                    results[i] = seqs[j]
+            return
+
+        def fragments(j):
+            w = int(n_wins[j])
+            if n_lab is None:
+                # 'windows': nibble-packed labels over each whole window
+                return rows_to_seqs(unpack_labels(packed[j, :w]))
+            return rows_to_seqs(unpack_labels2(packed[j, :w], n_lab[j, :w]))
+
+        def stitch_one(j):
+            if n_lab is not None:
+                # 'fused': the 2-bit rows rendered and stitched in C++
+                w = int(n_wins[j])
+                return assemble_read_packed2(packed[j, :w], n_lab[j, :w])
+            return assemble_fragments(fragments(j))
+
+        todo = [(j, i) for j, i in enumerate(idxs) if not bad[j]]
+        if o.consensus == "device":
+            # every read's votes in one padded call on the card
+            seqs = assemble_fragments_device_batch(
+                [fragments(j) for j, _ in todo], device=bc.device)
+        elif len(todo) > 3:
+            seqs = _stitch_pool().map(stitch_one, [j for j, _ in todo])
+        else:
+            seqs = map(stitch_one, [j for j, _ in todo])
+        for (_, i), seq in zip(todo, seqs):
+            results[i] = seq[::-1]  # 5'→3', as the reference's basecall.py
+
+
+class CrfPath:
+    """The transformer-CRF path (module docstring) of a ``bonito_tx_crf``
+    model: one replica, no LM, chunks of ``size`` samples overlapping by
+    ``overlap`` (its config's ``basecaller`` section), ``step`` samples a
+    decoded step, a CRF of ``state_len``, ``options.chunk_batch`` chunks
+    a batch."""
+
+    plan_span = "radian.tx.chunk"
+    render_span = "radian.tx.stitch"
+    render_on_device = False
+
+    def __init__(self, model: TxCrfModel, config: DotDict,
+                 options: BasecallOptions, has_lm: bool, n_devices: int):
+        o = self.options = options
+        if has_lm:
+            raise ValueError(f"a {MODEL_TYPE} model decodes without an LM")
+        if n_devices != 1:
+            raise NotImplementedError(
+                f"a {MODEL_TYPE} model runs on one device, not a mesh")
+        if o.chunk_batch < 1:
+            raise ValueError(f"chunk_batch {o.chunk_batch} < 1")
+        section = config.get("basecaller")
+        if section is None:
+            raise ValueError(f"a {MODEL_TYPE} config needs a basecaller "
+                             "section (chunksize, overlap)")
+        self.size = int(section.chunksize)
+        self.overlap = int(section.overlap)
+        if self.size % model.sample_stride \
+                or not 0 <= self.overlap < self.size:
+            raise ValueError(
+                f"chunksize {self.size} must be a multiple of the stem's "
+                f"stride {model.sample_stride}, overlap {self.overlap} in "
+                "[0, chunksize)")
+        self.step, self.state_len = model.stride, model.state_len
+
+    def plan(self, bc: "Basecaller", signals) -> list:
+        """``[(read indices, ChunkBatch)]`` (``ops/chunking.py``)."""
+        return [(b.reads, b) for b in chunking.plan(
+            [len(x) for x in signals], size=self.size, overlap=self.overlap,
+            step=self.step, rows=self.options.chunk_batch)]
+
+    def batch(self, idxs, batch: chunking.ChunkBatch) -> chunking.ChunkBatch:
+        return batch
+
+    def check_streaming(self) -> None:
+        raise NotImplementedError(
+            f"streaming a {MODEL_TYPE} model: use basecall_signals")
+
+    def run(self, bc: "Basecaller", batch: chunking.ChunkBatch, reads,
+            lengths, table):
+        """→ ``(mads, Viterbi paths)``."""
+        with profiling.span("radian.forward", bc.device):
+            scores, mads = bc.crf_scores(reads, lengths, table)
+        with profiling.span("radian.decode", bc.device):
+            path = viterbi_path(scores[:batch.n_chunks], self.state_len)
+        return mads, path
+
+    def render(self, bc: "Basecaller", batch: chunking.ChunkBatch, record,
+               results) -> None:
+        mads, path = record
+        batch.stitch(path, _skipped(mads), results)
+
+
+class Basecaller:
+    """Bucketed, batched basecaller, global or chunk mode.
+
+    ``lm`` (a ``KmerLM`` of ``options.context_len``) fuses the k-mer LM
+    into the global decode, or with ``options.chunk_lm`` into the tiled
+    chunk decode; its tables go to the device once, here, packed
+    (``KmerLM.compressed()``) when that is under
+    ``options.packed_lm_max_bytes`` and dense otherwise, in
+    ``options.lm_table_dtype``.
+
+    Pass ``mesh`` (a ``parallel.Mesh`` with a ``data`` axis, e.g. from
+    ``parallel.make_mesh``) to shard each read batch over its data
+    devices in one process, as the JAX package's ``shard_map`` does: one
+    replica of the model and the LM tables on each data device, each
+    batch's ``read_batch`` rows split into equal slices (so
+    ``read_batch`` must divide by the data size), each slice run and
+    copied to the host from its own thread, the strings joined in row
+    order.  Reads are independent, so the strings are the unsharded
+    ones.  ``device`` must be one of the mesh's devices: it holds the
+    unsharded helpers (``forward``, ``decode``, ``chunk_*``) and the
+    device consensus.  Without a mesh, the Basecaller is a mesh of one
+    replica on ``device``.
+
+    A ``model`` axis above 1 is accepted, as in the JAX package, whose
+    ``shard_map`` keeps the parameters replicated and the batch split
+    over ``data`` only, so each device of a model row computes its data
+    slice again and keeps one copy.  Here the first device of each model
+    row (``Mesh.data_devices``) runs the slice, once: the same strings,
+    with none of the redundant copies (a deliberate deviation).
+
+    ``self.path`` is the decode path the constructor chose, with its
+    geometry: ``GlobalPath`` or ``ChunkPath`` by ``options.decode_type``
+    for radian's model, ``CrfPath`` for a config whose ``model.type`` is
+    ``bonito_tx_crf`` (the transformer-CRF model and its chunks, module
+    docstring).
+    """
+
+    def __init__(
+        self,
+        params: dict[str, torch.Tensor],
+        config: DotDict | None = None,
+        lm: KmerLM | None = None,
+        options: BasecallOptions | None = None,
+        compute_dtype: torch.dtype = torch.float32,
+        mesh=None,
+        device: str | torch.device = "cuda",
+    ):
+        self.config = config if config is not None else default_config()
+        self.options = o = options or BasecallOptions()
+        if o.decode_type not in ("global", "chunk"):
+            raise ValueError(f"decode_type={o.decode_type!r}: 'global' or "
+                             "'chunk'")
+        if o.consensus not in ("reference", "device"):
+            raise ValueError(f"consensus={o.consensus!r}: 'reference' or "
+                             "'device'")
+        if o.beam_width > MAX_BEAM:
+            raise NotImplementedError(
+                f"beam_width {o.beam_width} > {MAX_BEAM}: the reference's "
+                "int8 backpointers (parent*8 + append+1) overflow from beam "
+                "17 on, so wider beams have no reference to hold the port "
+                "to (ROADMAP.md, Queue 3: int8 backpointer overflow)")
+        if o.assembly_mode not in ("first", "mean"):
+            raise ValueError(f"assembly_mode={o.assembly_mode!r}: 'first' "
+                             "or 'mean'")
+        if o.prep_mode not in ("auto", "fullread", "strips", "windows"):
+            raise ValueError(f"prep_mode={o.prep_mode!r}: 'auto', "
+                             "'fullread', 'strips' or 'windows'")
+        self.device = resolve_device(device)
+        self.mesh = (make_mesh(data=1, devices=[self.device])
+                     if mesh is None else mesh)
+        devices = self._mesh_devices(self.mesh)
+        self.lm_fusion = (None if lm is None
+                          else self._lm_tables(lm, compute_dtype))
+        self.model = build_model(self.config, compute_dtype)
+        self.model.load_state_dict(params)
+        self.model.to(self.device).eval()
+        # the one choice of decode path: the model's family, then the mode
+        if isinstance(self.model, TxCrfModel):
+            if o.decode_type != "global":
+                raise ValueError(
+                    f"decode_type={o.decode_type!r} is radian's; a "
+                    f"{MODEL_TYPE} model chunks by its config's "
+                    "basecaller section")
+            self.path = CrfPath(self.model, self.config, o, lm is not None,
+                                len(devices))
+        else:
+            self.path = (ChunkPath if o.decode_type == "chunk"
+                         else GlobalPath)(self.model, o, lm is not None)
+        # one replica a data device: ``self`` on ``device`` (it serves the
+        # unsharded helpers), copies of its model and tables elsewhere
+        home = devices.index(self.device)
+        self._replicas = [self if i == home else self._replica(d)
+                          for i, d in enumerate(devices)]
+        # two threads a replica (on a mesh of several): one slice's host
+        # copy waits while the next batch's slice is queued
+        self._shard_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=2 * len(devices), thread_name_prefix="radian-shard")
+        # the sequence number of a call, which its spans carry
+        self._calls = itertools.count()
+
+    def _replica(self, device: torch.device) -> "Basecaller":
+        """This Basecaller with its model and LM tables copied to
+        ``device``."""
+        rep = copy.copy(self)
+        rep.device = device
+        rep.model = copy.deepcopy(self.model).to(device)
+        if self.lm_fusion is not None:
+            rep.lm_fusion = self.lm_fusion._replace(
+                t1=self.lm_fusion.t1.to(device),
+                t2=self.lm_fusion.t2.to(device))
+        return rep
+
+    def _mesh_devices(self, mesh) -> list[torch.device]:
+        """The mesh's data devices, checked as the JAX package checks a
+        mesh (radian_tpu/pipeline.py:632-640)."""
+        o = self.options
+        if "data" not in mesh.axis_names:
+            raise ValueError("inference mesh needs a 'data' axis")
+        if o.read_batch % mesh.shape["data"] != 0:
+            raise ValueError(
+                f"read_batch {o.read_batch} must be divisible by the mesh "
+                f"data axis ({mesh.shape['data']})")
+        devices = replicated_sharding(mesh)
+        if self.device not in devices:
+            raise ValueError(f"device {self.device} is not among the mesh's "
+                             f"data devices {[str(d) for d in devices]}")
+        return [resolve_device(d) for d in devices]
+
     def _lm_tables(self, lm: KmerLM, compute_dtype) -> LMFusion:
         """The LM's tables on the device, in the layout and dtype the
         options pick (radian_tpu/pipeline.py:654-688)."""
@@ -810,13 +932,13 @@ class Basecaller:
         """Padded ``[N, L]`` batch → ``(mats [N, T, 5], t_reads, mads)``
         by the global forward the constructor chose (``T = L``, or
         ``L // step · step`` on the strips path)."""
-        o = self.options
-        if self.use_fullread:
+        o, p = self.options, self.path
+        if p.use_fullread:
             return _prep_model_assemble_fullread(self.model, signals,
                                                  lengths, opts=o)
-        if self.use_strips:
+        if p.use_strips:
             return _prep_model_assemble_strips(
-                self.model, signals, lengths, opts=o, ctx=self.strip_ctx,
+                self.model, signals, lengths, opts=o, ctx=p.strip_ctx,
                 n_strips=signals.shape[1] // o.step_size)
         return _prep_model_assemble_windows(self.model, signals, lengths,
                                             opts=o)
@@ -841,32 +963,89 @@ class Basecaller:
         o = self.options
         return _chunk_geometry(
             lengths.to(self.device), window=o.chunk_len, step=o.step_size,
-            stride=self.crop_stride,
+            stride=self.path.crop_stride,
             max_windows=max_windows_for(bucket, o.chunk_len, o.step_size))
 
     @torch.inference_mode()
     def chunk_forward(self, signals: torch.Tensor, lengths: torch.Tensor):
-        """Padded ``[N, L]`` batch → ``(norm, probs_full [N, L + chunk_len,
-        5], mads)``: the full-read forward."""
-        return _chunk_fullread(self.model, signals, lengths,
-                               opts=self.options)
+        """Padded ``[N, L]`` batch → ``(norm [N, L], probs_full [N, L +
+        chunk_len, 5], mads)``: normalised, then ONE causal forward over
+        each whole read, zero-extended by ``chunk_len`` so the tail
+        window's padding exists in it too.
+
+        The TCN is causal with receptive field RF, so a window's output at
+        in-window position ``p >= RF-1`` is the full-read output at its
+        absolute position.  A bfloat16 forward stores ``probs_full`` in
+        bfloat16, as the JAX package does.
+        """
+        o, model = self.options, self.model
+        norm, mads = mad_normalise(signals, lengths, o.outlier_clip)
+        padded = F.pad(norm, (0, o.chunk_len))
+        profiling.count("forward_samples", padded.numel())
+        probs_full = model(padded[..., None], probs=True)
+        if model.compute_dtype == torch.bfloat16:
+            probs_full = probs_full.to(torch.bfloat16)
+        return norm, probs_full, mads
 
     @torch.inference_mode()
     def chunk_window_probs(self, norm, probs_full, geom: ChunkGeometry):
-        """→ ``[N·D, chunk_len, 5]`` float32: the decoded windows, their
-        heads from the zero-history fix-up forward ('fused')."""
-        return _chunk_window_probs(self.model, norm, probs_full, geom,
-                                   head=self.chunk_head,
-                                   window=self.options.chunk_len)
+        """Each decoded window's probabilities, ``[N·D, chunk_len, 5]``
+        float32.
+
+        Steps ``[head, chunk_len)`` come from the full-read pass at their
+        absolute positions; steps ``[0, head)`` from a zero-history
+        forward over the window's first ``head`` samples, the reference's
+        window start (the path's ``chunk_head``: RF-1 rounded up to 128,
+        'fused').  With ``head == 0`` ('fullprobs') every step comes from
+        the full-read pass.
+        """
+        head, window = self.path.chunk_head, self.options.chunk_len
+        n, d = geom.starts.shape
+        dev = norm.device
+        rows = torch.arange(n, device=dev)[:, None]
+        tidx = geom.starts[..., None] + torch.arange(head, window, device=dev)
+        probs = probs_full[rows, tidx.reshape(n, -1)].reshape(
+            n * d, window - head, -1)
+        if head:
+            # norm is zero past a read's length; the clamp only keeps the
+            # index inside the bucket
+            hidx = geom.starts[..., None] + torch.arange(head, device=dev)
+            strips = norm[rows, torch.clamp(hidx.reshape(n, -1),
+                                            max=norm.shape[1] - 1)]
+            head_probs = _model_in_groups(self.model,
+                                          strips.reshape(n * d, head))
+            probs = torch.cat([head_probs.to(probs.dtype), probs], 1)
+        return probs.float()
 
     @torch.inference_mode()
     def chunk_decode(self, probs: torch.Tensor, geom: ChunkGeometry):
-        """→ ``(packed labels [N, D, cap/4] uint8, n_labels [N, D])``: one
-        decode launch over every window, the crop, the compaction."""
-        return _chunk_decode(
-            probs, geom, opts=self.options, max_lab=self.chunk_cap,
-            crop_off=self.crop_off, stride=self.crop_stride,
-            lm=self.lm_fusion if self.chunk_lm else None)
+        """All of a batch's windows decoded in one launch → ``(2-bit-packed
+        compacted labels [N, D, cap/4] uint8, n_labels [N, D] int32)``,
+        ``cap`` the path's ``chunk_cap``, with ``chunk_lm`` the LM fused.
+
+        In the tiled crop (``crop_off > 0``) only each window's kept span
+        of labels survives (``_crop_spans``) and the counts are of those.
+        Backtraced column ``k`` is time step ``window-1-k``.
+        """
+        o, p = self.options, self.path
+        n, d = geom.starts.shape
+        lens = geom.lens.reshape(-1)
+        if p.chunk_lm:
+            rev, n_lab, _ = beam_search_lm_cuda(probs, lens, o.beam_width,
+                                                self.lm_fusion)
+        else:
+            rev, n_lab, _ = beam_search_cuda(probs, lens, o.beam_width)
+        if p.crop_off > 0:
+            window = probs.shape[1]
+            lo, hi = _crop_spans(geom, step=o.step_size, crop_off=p.crop_off,
+                                 stride=p.crop_stride)
+            t = window - 1 - torch.arange(window, device=rev.device)[None, :]
+            keep = (t >= lo.reshape(-1, 1)) & (t < hi.reshape(-1, 1))
+            rev = torch.where(keep, rev, -1)
+            n_lab = (rev >= 0).sum(1)
+        return (_compact_pack2(rev, p.chunk_cap).reshape(n, d,
+                                                         p.chunk_cap // 4),
+                n_lab.reshape(n, d).to(torch.int32))
 
     # the transformer-CRF path
 
@@ -880,17 +1059,14 @@ class Basecaller:
         norm, mads = mad_normalise(reads, lengths, self.options.outlier_clip)
         row, start = table[:, 0], table[:, 1]
         idx = (start[:, None]
-               + torch.arange(self.crf.size, device=reads.device)) \
+               + torch.arange(self.path.size, device=reads.device)) \
             % lengths.long()[row][:, None]
         return self.model(norm[row[:, None], idx]), mads
 
     def chunk_batches(self, signals: Sequence[np.ndarray]):
         """``[(read indices, ChunkBatch)]``: the chunks of the reads,
         ``options.chunk_batch`` a batch (``ops/chunking.py``)."""
-        g = self.crf
-        return [(b.reads, b) for b in chunking.plan(
-            [len(x) for x in signals], size=g.size, overlap=g.overlap,
-            step=g.step, rows=self.options.chunk_batch)]
+        return self.path.plan(self, signals)
 
     # -- host orchestration ----------------------------------------------
 
@@ -943,25 +1119,9 @@ class Basecaller:
         discarded).  int16 signals travel as int16.  For a chunk batch
         (``bucket`` a ``ChunkBatch``) the arrays of its
         ``host_arrays``."""
-        return tuple(torch.from_numpy(x).to(self.device)
-                     for x in self._pad_host(idxs, bucket, signals))
-
-    def _pad_host(self, idxs, bucket, signals):
-        """``pad_batch``'s arrays, on the host."""
-        if self.crf is not None:
-            return bucket.host_arrays(signals, self.options.bucket_quantum)
-        n = self.options.read_batch
-        real = len(idxs)
-        dtypes = {np.asarray(signals[i]).dtype for i in idxs}
-        host_dtype = (np.int16 if dtypes == {np.dtype(np.int16)}
-                      else np.float32)
-        padded = np.zeros((n, bucket), host_dtype)
-        lengths = np.zeros(n, np.int32)
-        for j in range(n):
-            sig = signals[idxs[j]] if j < real else signals[idxs[0]]
-            padded[j, : len(sig)] = sig
-            lengths[j] = len(sig)
-        return padded, lengths
+        batch = self.path.batch(idxs, bucket)
+        return tuple(torch.from_numpy(x).to(self.device) for x in
+                     batch.host_arrays(signals, self.options.bucket_quantum))
 
     def basecall_signals(
         self, signals: Sequence[np.ndarray]
@@ -970,190 +1130,75 @@ class Basecaller:
         results: list[str | None] = [None] * len(signals)
         with profiling.span("radian.call", self.device,
                             call=next(self._calls)):
-            if self.crf is None:
-                with profiling.span("radian.batches"):
-                    plan = self.batches(signals)
-            else:
-                with profiling.span("radian.tx.chunk"):
-                    plan = self.chunk_batches(signals)
-            # batch k+1 is dispatched before batch k is rendered, but with
-            # one replica ``_dispatch_batch`` returns only once batch k+1
-            # is back on the host (its copy back waits for the device), so
-            # the render of batch k and the pad of batch k+2 do not overlap
-            # the device.  Spans on an H100, global+LM bf16 at 256 reads a
-            # batch: render ~7.6 ms and pad ~2.1 ms of a ~276 ms batch, the
-            # render ~80 % of the device's idle time; chunk f32: stitch
-            # 50-66 ms of a ~1.56 s batch, ~90 % of the idle time
-            inflight: list = []
-            for k, (idxs, b) in enumerate(plan):
-                inflight.append(self._dispatch_batch(idxs, b, signals, k))
-                if len(inflight) >= 2:
-                    pend = inflight.pop(0)
-                    self._collect_batch(pend.record(), results, pend.batch)
-            for pend in inflight:
-                self._collect_batch(pend.record(), results, pend.batch)
+            with profiling.span(self.path.plan_span):
+                plan = self.path.plan(self, signals)
+            self._run_batches(((signals, b) for _, b in plan), results)
         return results
 
-    def _dispatch_batch(self, idxs, bucket, signals, batch=None):
-        """Run one batch's device work, a row slice a replica; returns the
-        ``_ShardedBatch`` of the slices' futures, whose ``record()``
-        ``_collect_batch`` turns into strings.  Several replicas each run
-        on a shard thread, so that one device's host copy does not hold
-        back the others.  A lone replica runs on the calling thread, where
-        a card's queue is the same and torch's CPU ops keep their speed
+    def _run_batches(self, batches, results,
+                     collected=lambda batch: None) -> None:
+        """Each ``(signals, batch)`` of ``batches`` run on the device and
+        rendered into ``results``, two in flight: batch k+1 is dispatched
+        before batch k is rendered; ``collected(batch)`` follows each
+        render.  A lone replica's copy back blocks, so the render of
+        batch k does not overlap the device."""
+        inflight = []
+
+        def collect():
+            batch, futures, k = inflight.pop(0)
+            # the slices' records (host arrays, in row order), each array
+            # joined by rows
+            parts = [f.result() for f in futures]
+            record = (parts[0] if len(parts) == 1
+                      else [np.concatenate(f) for f in zip(*parts)])
+            p = self.path
+            with profiling.span(p.render_span, self.device
+                                if p.render_on_device else None, batch=k):
+                p.render(self, batch, record, results)
+            collected(batch)
+
+        for k, (signals, batch) in enumerate(batches):
+            futures = self._dispatch_batch(batch, signals, k)
+            inflight.append((batch, futures, k))
+            if len(inflight) >= 2:
+                collect()
+        while inflight:
+            collect()
+
+    def _dispatch_batch(self, batch, signals, k: int) -> list:
+        """Run batch ``k``'s device work, a row slice a replica; returns
+        the slices' futures, in row order.  Several replicas each run on a
+        shard thread, so that one device's host copy does not hold back
+        the others.  A lone replica runs on the calling thread, where a
+        card's queue is the same and torch's CPU ops keep their speed
         (from a worker thread they ran at about half of it): its future
         is finished, the batch copied back, when this returns."""
         split = data_sharding(self.mesh)
-        with profiling.span("radian.pad", batch=batch):
-            host = self._pad_host(idxs, bucket, signals)
+        with profiling.span("radian.pad", batch=k):
+            host = batch.host_arrays(signals, self.options.bucket_quantum)
         if profiling.tracing():
-            if self.crf is None:
-                profiling.count("reads", len(idxs))
-                profiling.count("real_samples",
-                                int(host[1][:len(idxs)].sum()))
-            else:
-                bucket.count(signals)
+            batch.count(signals)
         parts = [split.parts(torch.from_numpy(x)) for x in host]
         run = (_run_here if len(self._replicas) == 1
                else self._shard_pool.submit)
         parent = profiling.current()
-        return _ShardedBatch(idxs, [
-            run(rep._slice_to_host, [x for x, _ in arrays], bucket, parent,
-                batch)
-            for rep, *arrays in zip(self._replicas, *parts)], batch)
+        return [run(rep._slice_to_host, [x for x, _ in arrays], batch,
+                    parent, k)
+                for rep, *arrays in zip(self._replicas, *parts)]
 
-    @torch.inference_mode()
-    def _device_batch(self, padded, lengths, bucket, table=None):
-        """One padded batch's device work on ``self.device`` → ``(mode,
-        mads, packed labels, windows a read, n_labels or None)``; a chunk
-        batch's → ``("crf", mads, paths, its ChunkBatch, None)``."""
-        o, dev = self.options, self.device
-        if self.crf is not None:
-            with profiling.span("radian.forward", dev):
-                scores, mads = self.crf_scores(padded, lengths, table)
-            with profiling.span("radian.decode", dev):
-                path = viterbi_path(scores[:bucket.n_chunks],
-                                    self.crf.state_len)
-            return "crf", mads, path, bucket, None
-        if o.decode_type == "global":
-            with profiling.span("radian.forward", dev):
-                mats, t_reads, mads = self.forward(padded, lengths)
-            with profiling.span("radian.decode", dev):
-                packed, _ = self.decode(mats, t_reads)
-            return "global", mads, packed, None, None
-        if self.use_chunk_fused:
-            geom = self.chunk_geometry(lengths, bucket)
-            with profiling.span("radian.forward", dev):
-                norm, probs_full, mads = self.chunk_forward(padded, lengths)
-                probs = self.chunk_window_probs(norm, probs_full, geom)
-            del norm, probs_full
-            with profiling.span("radian.decode", dev):
-                packed, n_lab = self.chunk_decode(probs, geom)
-            return "chunk", mads, packed, geom.n_dec, n_lab
-        with profiling.span("radian.forward", dev):
-            probs, n_wins, pad_ends, mads = _prep_and_model(
-                self.model, padded, lengths, opts=o,
-                max_windows=max_windows_for(bucket, o.chunk_len,
-                                            o.step_size))
-        with profiling.span("radian.decode", dev):
-            packed, _ = _decode_windows(probs, n_wins, pad_ends, opts=o)
-        return "chunk", mads, packed, n_wins, None
-
-    def _slice_to_host(self, host: list[torch.Tensor], bucket, parent=None,
-                       batch=None):
-        """A mesh slice, on a shard thread: its host arrays (``_pad_host``'s
-        rows) copied to this replica's device and through its device
-        work, the record copied back to the host (``parent`` and
-        ``batch``: its spans')."""
-        with _on(self.device), profiling.within(parent, batch):
+    def _slice_to_host(self, host: list[torch.Tensor], batch, parent,
+                       k: int) -> list[np.ndarray]:
+        """A mesh slice, on a shard thread: its host arrays (rows of the
+        batch's ``host_arrays``) copied to this replica's device and
+        through the path's device run, the record copied back to the host
+        (``parent`` and ``k``: its spans')."""
+        with _on(self.device), profiling.within(parent, k):
             with profiling.span("radian.h2d", self.device):
                 arrays = [x.to(self.device) for x in host]
-            mode, *rec = self._device_batch(*arrays[:2], bucket,
-                                            *arrays[2:])
+            with torch.inference_mode():
+                record = self.path.run(self, batch, *arrays)
             with profiling.span("radian.d2h", self.device):
-                return (mode, *map(_host, rec))
-
-    def _collect_batch(self, pending, results, batch=None) -> None:
-        """Render (global) or stitch (chunk) each read's string of a
-        batch's record (host arrays, or tensors copied here) into
-        ``results``."""
-        mode = pending[0]
-        on_device = (mode == "chunk" and not self.chunk_tiled
-                     and self.options.consensus == "device")
-        name = {"global": "radian.render", "chunk": "radian.stitch",
-                "crf": "radian.tx.stitch"}[mode]
-        with profiling.span(name, self.device if on_device else None,
-                            batch=batch):
-            self._render(pending, results)
-
-    def _render(self, pending, results) -> None:
-        o = self.options
-        mode, idxs, mads, packed, n_wins, n_lab = pending
-        mads = _host(mads)
-        bad = ~np.isfinite(mads) | (mads == 0)
-        packed = _host(packed)
-        if mode == "crf":
-            # ``packed``: the paths; ``n_wins``: the ChunkBatch
-            n_wins.stitch(packed, bad, results)
-            return
-        if mode == "global":
-            rev = unpack_labels(packed)
-            for j, i in enumerate(idxs):
-                if not bad[j]:
-                    results[i] = labels_to_seq(rev[j])  # already 5'→3'
-            return
-        n_wins = _host(n_wins)
-        if n_lab is not None:
-            # the fused paths kept at most chunk_cap labels a window: a
-            # window over it would be cut short, so fail loudly instead
-            n_lab = _host(n_lab)
-            win_valid = np.arange(n_lab.shape[1])[None, :] < n_wins[:, None]
-            row_ok = (np.arange(n_lab.shape[0]) < len(idxs)) & ~bad
-            over = (n_lab > self.chunk_cap) & win_valid & row_ok[:, None]
-            if over.any():
-                raise RuntimeError(
-                    f"chunk window emitted {int(n_lab[over].max())} labels "
-                    f"> the effective compaction cap {self.chunk_cap} "
-                    f"(chunk_max_lab {o.chunk_max_lab} rounded to a "
-                    "multiple of 4); raise BasecallOptions.chunk_max_lab")
-        if self.chunk_tiled:
-            # the kept spans partition the read, so its 5'→3' string is
-            # every window's labels as stored (last emission first), the
-            # windows last to first: one pass over the whole batch
-            live = np.arange(n_lab.shape[1])[None, :] < n_wins[:, None]
-            labs = unpack_labels2(packed, np.where(live, n_lab, 0))
-            seqs = rows_to_seqs(labs[:, ::-1].reshape(len(labs), -1),
-                                reverse=False)
-            for j, i in enumerate(idxs):
-                if not bad[j]:
-                    results[i] = seqs[j]
-            return
-
-        def fragments(j):
-            w = int(n_wins[j])
-            if n_lab is None:
-                # 'windows': nibble-packed labels over each whole window
-                return rows_to_seqs(unpack_labels(packed[j, :w]))
-            return rows_to_seqs(unpack_labels2(packed[j, :w], n_lab[j, :w]))
-
-        def stitch_one(j):
-            if n_lab is not None:
-                # 'fused': the 2-bit rows rendered and stitched in C++
-                w = int(n_wins[j])
-                return assemble_read_packed2(packed[j, :w], n_lab[j, :w])
-            return assemble_fragments(fragments(j))
-
-        todo = [(j, i) for j, i in enumerate(idxs) if not bad[j]]
-        if o.consensus == "device":
-            # every read's votes in one padded call on the card
-            seqs = assemble_fragments_device_batch(
-                [fragments(j) for j, _ in todo], device=self.device)
-        elif len(todo) > 3:
-            seqs = _stitch_pool().map(stitch_one, [j for j, _ in todo])
-        else:
-            seqs = map(stitch_one, [j for j, _ in todo])
-        for (_, i), seq in zip(todo, seqs):
-            results[i] = seq[::-1]  # 5'→3', as the reference's basecall.py
+                return [x.cpu().numpy() for x in record]
 
     def basecall_stream(self, reads: Iterable[Fast5Read],
                         writer: FastaWriter,
@@ -1166,57 +1211,38 @@ class Basecaller:
         finished reads is written as it completes.  Returns
         ``(written, total)``.
         """
-        if self.crf is not None:
-            raise NotImplementedError(
-                f"streaming a {MODEL_TYPE} model: use basecall_signals")
-        pending: dict[int, list[tuple[int, np.ndarray]]] = {}
+        self.path.check_streaming()
         results: dict[int, str | None] = {}
         ids: dict[int, str] = {}
-        inflight: list = []
-        next_flush = n_written = n_total = 0
+        next_flush = n_written = 0
 
-        def collect_one():
+        def batches():
+            # bucket → its pending reads' signals by index
+            pending: dict[int, dict[int, np.ndarray]] = {}
+            for idx, read in enumerate(reads):
+                ids[idx] = read.read_id
+                b = self._bucket(len(read.signal))
+                pending.setdefault(b, {})[idx] = read.signal
+                if len(pending[b]) == self.options.read_batch:
+                    sigs = pending.pop(b)
+                    yield sigs, self.path.batch(list(sigs), b)
+            for b in sorted(pending):
+                yield pending[b], self.path.batch(list(pending[b]), b)
+
+        def flush(done):
             nonlocal n_written, next_flush
-            rec, idx_list = inflight.pop(0)
-            out: dict[int, str | None] = {}
-            self._collect_batch(rec.record(), out, rec.batch)
-            for i in idx_list:
-                results[i] = out.get(i)
+            for i in done.reads:
+                results.setdefault(i, None)
             while next_flush in results:
-                seq = results.pop(next_flush)
-                if seq is None:
-                    if verbose:
-                        print(f"{ids[next_flush]} signal issue, "
-                              "skipping this read.")
-                else:
-                    writer.write(ids[next_flush], seq)
-                    n_written += 1
-                ids.pop(next_flush, None)
+                n_written += _write_read(writer, ids.pop(next_flush),
+                                         results.pop(next_flush), verbose)
                 next_flush += 1
-
-        batch_ids = itertools.count()
-
-        def run(bucket, items):
-            idx_list = [i for i, _ in items]
-            inflight.append((self._dispatch_batch(
-                idx_list, bucket, dict(items), next(batch_ids)), idx_list))
-            if len(inflight) >= 2:
-                collect_one()
 
         with profiling.span("radian.call", self.device,
                             call=next(self._calls)):
-            for idx, read in enumerate(reads):
-                n_total += 1
-                ids[idx] = read.read_id
-                b = self._bucket(len(read.signal))
-                pending.setdefault(b, []).append((idx, read.signal))
-                if len(pending[b]) == self.options.read_batch:
-                    run(b, pending.pop(b))
-            for b in sorted(pending):
-                run(b, pending[b])
-            while inflight:
-                collect_one()
-        return n_written, n_total
+            self._run_batches(batches(), results, flush)
+        # every read is flushed in order by the end
+        return n_written, next_flush
 
     def basecall_directory(
         self,
@@ -1235,16 +1261,10 @@ class Basecaller:
                 n_written, n_total = self.basecall_stream(reads, w, verbose)
             else:
                 reads = list(reads)
-                n_total, n_written = len(reads), 0
+                n_total = len(reads)
                 seqs = self.basecall_signals([r.signal for r in reads])
-                for read, seq in zip(reads, seqs):
-                    if seq is None:
-                        if verbose:
-                            print(f"{read.read_id} signal issue, "
-                                  "skipping this read.")
-                        continue
-                    w.write(read.read_id, seq)
-                    n_written += 1
+                n_written = sum(_write_read(w, r.read_id, seq, verbose)
+                                for r, seq in zip(reads, seqs))
         if verbose:
             dt = time.time() - t0
             print(f"Basecalled {n_written}/{n_total} reads in {dt:.2f}s "

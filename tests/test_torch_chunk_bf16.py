@@ -72,7 +72,7 @@ def test_bf16_chunk_window_probs_round_like_jax():
         options=tpipe.BasecallOptions(decode_type="chunk", read_batch=2,
                                       bucket_quantum=2048),
         compute_dtype=torch.bfloat16, device="cpu")
-    assert bc.use_chunk_fused and bc.chunk_head == 256
+    assert bc.path.use_chunk_fused and bc.path.chunk_head == 256
     sig, ln = bc.pad_batch([0, 1], 2048, sigs)
     geom = bc.chunk_geometry(ln, 2048)
     norm, probs_full, _ = bc.chunk_forward(sig, ln)
@@ -81,7 +81,7 @@ def test_bf16_chunk_window_probs_round_like_jax():
     assert got.dtype == torch.float32
     got = got.numpy()
     want = _jax_window_probs(norm.numpy(), geom.starts.numpy(),
-                             bc.chunk_head, 1024)
+                             bc.path.chunk_head, 1024)
     assert got.shape == want.shape
     for a in (got, want):
         np.testing.assert_array_equal(

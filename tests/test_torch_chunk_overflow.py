@@ -22,7 +22,7 @@ def test_chunk_max_lab_overflow_raises():
     bc = tpipe.load_basecaller(TRAINED, options=tpipe.BasecallOptions(
         decode_type="chunk", chunk_prep="fused", read_batch=1,
         bucket_quantum=1024, chunk_max_lab=2), device="cpu")
-    assert bc.use_chunk_fused and bc.chunk_cap == 0
+    assert bc.path.use_chunk_fused and bc.path.chunk_cap == 0
     with pytest.raises(RuntimeError, match="chunk_max_lab"):
         bc.basecall_signals([chunk_reads()[1]])
 
@@ -32,7 +32,7 @@ def test_chunk_overflow_uses_effective_cap():
     4): a window of 5 labels was cut on the device, so the check compares
     against the effective cap, not the option; windows past a read's
     count and skipped rows are not checked."""
-    import torch
+    import numpy as np
 
     from radian_tpu_torch import pipeline as tpipe
     from radian_tpu_torch.models.sig2seq import build_model
@@ -41,18 +41,19 @@ def test_chunk_overflow_uses_effective_cap():
                           options=tpipe.BasecallOptions(
                               decode_type="chunk", chunk_prep="fused",
                               chunk_max_lab=6), device="cpu")
-    assert bc.chunk_cap == 4
+    assert bc.path.chunk_cap == 4
 
-    def pending(n_lab, mads=(1.0,), n_dec=(2,)):
-        return ("chunk", [0], torch.tensor(mads),
-                torch.zeros((len(mads), 2, 1), dtype=torch.uint8),
-                torch.tensor(n_dec), torch.tensor(n_lab, dtype=torch.int32))
+    def render(n_lab, results, mads=(1.0,), n_dec=(2,)):
+        record = [np.array(mads, np.float32),
+                  np.zeros((len(mads), 2, 1), np.uint8),
+                  np.array(n_dec), np.array(n_lab, np.int32)]
+        bc.path.render(bc, tpipe.ReadBatch([0], 1024, 1), record, results)
 
     with pytest.raises(RuntimeError, match="effective compaction cap 4"):
-        bc._collect_batch(pending([[5, 3]]), {})
+        render([[5, 3]], {})
     results = {}
-    bc._collect_batch(pending([[4, 9]], n_dec=(1,)), results)
+    render([[4, 9]], results, n_dec=(1,))
     assert results == {0: ""}
     skipped = {}
-    bc._collect_batch(pending([[9, 9]], mads=(0.0,)), skipped)
+    render([[9, 9]], skipped, mads=(0.0,))
     assert skipped == {}

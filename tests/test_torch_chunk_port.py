@@ -65,7 +65,7 @@ def test_chunk_fused_and_windows_match_jax(setup):
     got = {}
     for prep in ("auto", "windows"):
         tbc, got[prep], want = _both(setup, chunk_prep=prep)
-        assert tbc.use_chunk_fused is (prep == "auto")
+        assert tbc.path.use_chunk_fused is (prep == "auto")
         assert got[prep] == want, prep
     assert got["auto"] == got["windows"]
     assert got["auto"][2] is None
@@ -83,9 +83,9 @@ def test_chunk_fullprobs_crop_on_and_off_match_jax(setup):
     sigs, _, params = setup
     for crop in (True, False):
         tbc, got, want = _both(setup, chunk_prep="fullprobs", chunk_crop=crop)
-        assert tbc.chunk_tiled is crop
-        assert (tbc.crop_off, tbc.crop_stride) == ((640, 2) if crop
-                                                   else (0, 1))
+        assert tbc.path.chunk_tiled is crop
+        assert (tbc.path.crop_off, tbc.path.crop_stride) == (
+            (640, 2) if crop else (0, 1))
         assert got == want, crop
         assert got[2] is None
         if crop:

@@ -52,15 +52,15 @@ def test_entry_points_default_to_the_card_and_refuse_unported(tmp_path):
                        (dict(step_size=96), None), ({}, "fullread")):
         bc = tpipe.Basecaller(params, options=tpipe.BasecallOptions(**opts),
                               device="cpu")
-        assert (bc.use_strips, bc.use_fullread) == (fast == "strips",
-                                                   fast == "fullread")
+        assert (bc.path.use_strips, bc.path.use_fullread) == (
+            fast == "strips", fast == "fullread")
     with pytest.raises(ValueError, match="requires global decode"):
         tpipe.Basecaller(params, options=tpipe.BasecallOptions(
             prep_mode="fullread", step_size=96), device="cpu")
     # chunk mode and streaming are ported: these construct and run
     bc = tpipe.Basecaller(params, options=tpipe.BasecallOptions(
         decode_type="chunk", consensus="device"), device="cpu")
-    assert bc.use_chunk_fused and not bc.chunk_tiled
+    assert bc.path.use_chunk_fused and not bc.path.chunk_tiled
     assert bc.basecall_directory("in_dir", tmp_path, reads=[],
                                  streaming=True) == 0
     assert (tmp_path / "reads-0.fasta").read_text() == ""

@@ -76,7 +76,8 @@ def test_strips_windows_mean_and_fallback_match_jax(setup):
             ("step96", dict(step_size=96), None)):
         tbc, got, want = _both(setup, **kw)
         assert got == want, name
-        assert (tbc.use_strips, tbc.use_fullread) == (fast == "strips", False)
+        assert (tbc.path.use_strips, tbc.path.use_fullread) == (
+            fast == "strips", False)
         paths[name] = (tbc, got)
     assert paths["windows"][1] != paths["mean"][1]
     tbc = paths["strips"][0]
@@ -109,5 +110,5 @@ def test_mean_with_bench_lm_matches_jax(setup):
     model = tk.random_kmer_model(np.random.default_rng(42), 11, 200_000, 0.2)
     lm = (jk.build_dense_tables(model, 11), tk.build_dense_tables(model, 11))
     tbc, got, want = _both(setup, lm=lm, assembly_mode="mean")
-    assert tbc.lm_fusion is not None and not tbc.use_fullread
+    assert tbc.lm_fusion is not None and not tbc.path.use_fullread
     assert got == want

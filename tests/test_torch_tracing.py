@@ -147,10 +147,10 @@ def test_basecaller_spans_and_counters(tmp_path, monkeypatch):
         heads = 0
         extra = 0
         if mode == "chunk":
-            assert bc.use_chunk_fused and bc.chunk_head > 0
+            assert bc.path.use_chunk_fused and bc.path.chunk_head > 0
             extra = 256  # the full-read forward runs over L + chunk_len
             heads = sum(READ_BATCH * max_windows_for(b, 256, 32)
-                        * bc.chunk_head for b in batch_buckets)
+                        * bc.path.chunk_head for b in batch_buckets)
         assert profiling.counters() == {
             "reads": len(LENGTHS), "real_samples": sum(LENGTHS),
             "forward_samples": full_read + extra * READ_BATCH

@@ -37,7 +37,8 @@ def test_basecaller_strings_match_reference():
     bc = Basecaller({k: torch.from_numpy(v) for k, v in weights.items()},
                     DotDict(cfg), None, BasecallOptions(chunk_batch=4),
                     torch.float32, device="cpu")
-    assert bc.crf == (12288, 600, 6, 5)
+    p = bc.path
+    assert (p.size, p.overlap, p.step, p.state_len) == (12288, 600, 6, 5)
     rng = np.random.default_rng(1)
     reads = [(rng.normal(size=n) * 80 + 500).astype(np.int16)
              for n in LENGTHS]
@@ -81,7 +82,11 @@ def test_radian_path_unchanged_without_model_type():
     from radian_tpu_torch.models.sig2seq import SigToSeq, build_model
     from radian_tpu_torch.ops.beam_search import labels_to_seq, unpack_labels
     from radian_tpu_torch.parallel import make_mesh
-    from radian_tpu_torch.pipeline import Basecaller, BasecallOptions
+    from radian_tpu_torch.pipeline import (
+        Basecaller,
+        BasecallOptions,
+        GlobalPath,
+    )
 
     cfg = default_config()
     cfg.model.tcn.nb_filters = 16
@@ -92,7 +97,7 @@ def test_radian_path_unchanged_without_model_type():
     params = model.state_dict()
     bc = Basecaller(params, cfg, None, BasecallOptions(read_batch=2),
                     device="cpu")
-    assert bc.crf is None and bc.use_fullread
+    assert type(bc.path) is GlobalPath and bc.path.use_fullread
     rng = np.random.default_rng(2)
     reads = [(rng.normal(size=n) * 80 + 500).astype(np.int16)
              for n in (700, 1500, 900)]
