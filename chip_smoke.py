@@ -63,12 +63,12 @@ card, and checks them:
   5d. tx      Bonito's v5 transformer-CRF model at its published widths
               (seeded): 5 reads through the Basecaller in 16-chunk
               batches ending on a partial one, the Viterbi kernels
-              launched once a batch and the attention kernel once a
-              layer a batch; the kernels against the plain
-              Viterbi on each batch's bf16 scores (bit-equal paths), and
-              on the first batch's tiled to the main path's 512 chunks,
-              timed there beside the bound; the bf16
-              scores within the cell's score_gap of the f32 reference's
+              launched once a batch, the attention kernel once a layer
+              a batch and the norm kernel twice; the kernels against
+              the plain Viterbi on each batch's bf16 scores (bit-equal
+              paths), and on the first batch's tiled to the main path's
+              512 chunks, timed there beside the bound; the bf16 scores
+              within the cell's score_gap of the f32 reference's
               on 4 chunks
   5e. txa     the windowed attention kernel (csrc/tx_attention.cu) vs
               its plain version on the card at [512, 1024, 8, 64] and
@@ -81,7 +81,13 @@ card, and checks them:
               F.scaled_dot_product_attention on the bf16 path (18 on the
               f32 and band paths); ptxas registers, stack
               and spills; timed beside its bound, the plain version and
-              the band path (library_ms)
+              the band path (library_ms).  Then the DeepNorm residual +
+              RMSNorm kernel (csrc/tx_norm.cu): launches a forward (36
+              in bf16, none in f32 or under autograd); vs its plain
+              version at [524288, 512], ragged row counts and d 256,
+              768 and 1,024, every element within one bf16 rounding;
+              timed beside its bound, the plain version and F.rms_norm
+              on y + alpha * x (library_ms)
   6. kernels  each no-LM kernel vs its plain version on the inputs the main
               path gave it (the first batch), timed with CUDA events,
               beside its bound (bytes or operations over the H100's peaks);
@@ -2238,6 +2244,7 @@ def tx_phase(dev, levels) -> dict:
     from radian_tpu_torch.config import DotDict
     from radian_tpu_torch.ops import crf_viterbi as cv
     from radian_tpu_torch.ops import tx_attention as txa
+    from radian_tpu_torch.ops import tx_norm as txn
     from radian_tpu_torch.pipeline import Basecaller, BasecallOptions
 
     cfg = DotDict(json.loads(TX_CONFIG.read_text())["model_config"])
@@ -2248,22 +2255,27 @@ def tx_phase(dev, levels) -> dict:
     reads = synth_signals(np.random.default_rng(16), TX_LENGTHS, levels)
     plan = bc.chunk_batches(reads)
     cv.crf_viterbi.launches = cv.crf_backtrace.launches = 0
-    txa.tx_attention.launches = 0
+    txa.tx_attention.launches = txn.tx_norm.launches = 0
     seqs = bc.basecall_signals(reads)
     torch.cuda.synchronize()
     launches = {"crf_viterbi": cv.crf_viterbi.launches,
                 "crf_backtrace": cv.crf_backtrace.launches}
     txa_launches = txa.tx_attention.launches
+    txn_launches = txn.tx_norm.launches
     _line("tx-e2e", reads=len(reads), batches=len(plan),
           chunks=[b.n_chunks for _, b in plan],
           lengths=[len(x) for x in seqs], launches=json.dumps(launches),
-          tx_attention_launches=txa_launches)
+          tx_attention_launches=txa_launches, tx_norm_launches=txn_launches)
     if any(v != len(plan) for v in launches.values()):
         _fail(f"the Viterbi kernels did not launch once a batch: {launches}")
     if txa_launches != cfg.model.encoder.num_layers * len(plan):
         _fail(f"tx_attention launched {txa_launches} times on the main "
               f"path's {len(plan)} batches (want "
               f"{cfg.model.encoder.num_layers} a batch)")
+    if txn_launches != 2 * cfg.model.encoder.num_layers * len(plan):
+        _fail(f"tx_norm launched {txn_launches} times on the main path's "
+              f"{len(plan)} batches (want "
+              f"{2 * cfg.model.encoder.num_layers} a batch: two a layer)")
     if any(not x for x in seqs):
         _fail("a transformer-CRF read came back empty or skipped")
     if plan[0][1].n_chunks != TX_BATCH or plan[-1][1].n_chunks >= TX_BATCH:
@@ -2340,7 +2352,7 @@ def tx_phase(dev, levels) -> dict:
             "plain_ms_16_chunks": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "score_gap": gap,
             "tx_attention_launches": txa_launches,
-            "batches": len(plan)}
+            "tx_norm_launches": txn_launches, "batches": len(plan)}
 
 
 # phase 5e: the transformer-CRF windowed attention kernel
@@ -2378,6 +2390,7 @@ def txa_phase(dev, levels, ptxas: list[str]) -> dict:
     from radian_tpu_torch.models.sig2seq import build_model
     from radian_tpu_torch.models.tx_crf import band_attention, band_mask, rotary
     from radian_tpu_torch.ops import tx_attention as txa
+    from radian_tpu_torch.ops import tx_norm as txn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     for ln in ptxas:
@@ -2463,15 +2476,16 @@ def txa_phase(dev, levels, ptxas: list[str]) -> dict:
         sdpa_calls[path] = sdpa_calls.get(path, 0) + 1
         return sdpa(*args, **kwargs)
 
-    launches = {}
+    launches, norm_launches = {}, {}
     torch.nn.functional.scaled_dot_product_attention = counted
     try:
         with torch.inference_mode():
             for dt in (torch.bfloat16, torch.float32):
                 path = str(dt).split(".")[1]
-                txa.tx_attention.launches = 0
+                txa.tx_attention.launches = txn.tx_norm.launches = 0
                 s = models[dt](x).float()
                 launches[path] = txa.tx_attention.launches
+                norm_launches[path] = txn.tx_norm.launches
                 if dt == torch.bfloat16:
                     s_kernel = s
                 else:
@@ -2479,8 +2493,10 @@ def txa_phase(dev, levels, ptxas: list[str]) -> dict:
         bf16 = models[torch.bfloat16]
         bf16.requires_grad_(False)
         path = "band"
+        txn.tx_norm.launches = 0
         with torch.enable_grad():
             s_band = bf16(x).float()
+        norm_launches[path] = txn.tx_norm.launches
         bf16.requires_grad_(True)
     finally:
         torch.nn.functional.scaled_dot_product_attention = sdpa
@@ -2491,6 +2507,7 @@ def txa_phase(dev, levels, ptxas: list[str]) -> dict:
           max_abs_ds_band_vs_f32=f"{dp_band:.4f}",
           max_abs_ds_vs_f32=f"{dp_kernel:.4f}",
           share=f"{dp / dp_band:.3f}", launches=json.dumps(launches),
+          tx_norm_launches=json.dumps(norm_launches),
           sdpa_calls=json.dumps(sdpa_calls))
     if not dp <= TXA_MAX_DP_SHARE * dp_band:
         _fail(f"the bf16 forward's scores are {dp} from the band path's, "
@@ -2502,8 +2519,80 @@ def txa_phase(dev, levels, ptxas: list[str]) -> dict:
     if sdpa_calls != {"float32": layers, "band": layers}:
         _fail(f"F.scaled_dot_product_attention ran {sdpa_calls} a forward "
               f"(want none on the bf16 kernel path)")
+    if norm_launches != {"bfloat16": 2 * layers, "float32": 0, "band": 0}:
+        _fail(f"tx_norm launched {norm_launches} a forward (want "
+              f"{2 * layers} in bf16, 0 in float32 and under autograd)")
     out.update(forward_launches=launches, sdpa_calls=sdpa_calls,
-               max_abs_ds_vs_band=dp, max_abs_ds_band_vs_f32=dp_band)
+               max_abs_ds_vs_band=dp, max_abs_ds_band_vs_f32=dp_band,
+               tx_norm_forward_launches=norm_launches)
+    return out
+
+
+# phase 5e, last: the DeepNorm residual + RMSNorm kernel (csrc/tx_norm.cu)
+# against add_rmsnorm_plain on the card, at the published alpha and eps,
+# on y of scale 3, x of scale 1 and a weight near 1: (rows, d) the main
+# path's [524288, 512] (512 chunks of 1,024 tokens), row counts off a
+# block's 8 warps, and the other widths the kernel takes.  Both compute
+# the output in float32 and round once; only the order of the sum of
+# squares differs, so an output near a rounding boundary may round the
+# other way: every element within one bf16 rounding of the plain one's
+TXN_CASES = ((524288, 512), (5, 512), (1003, 512), (1003, 768), (33, 256),
+             (1003, 1024))
+
+
+def txn_check(dev, ptxas: list[str]) -> dict:
+    """Phase 5e, last (above): the norm kernel within one bf16 rounding of
+    its plain version, the share of elements that differ, and its time at
+    the main path's shape beside the bound, the plain version's and
+    ``F.rms_norm``'s on ``y + α·x`` (a yardstick the port never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from radian_tpu_torch.config import DotDict
+    from radian_tpu_torch.ops import tx_norm as txn
+
+    for ln in ptxas:
+        print(f"  ptxas tx_norm: {ln}")
+    enc = DotDict(json.loads(TX_CONFIG.read_text())["model_config"]).model.encoder
+    alpha, eps = enc.deepnorm_alpha, enc.norm_eps
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    out = {"ptxas": ptxas}
+    for rows, d in TXN_CASES:
+        y = (torch.randn(rows, d, generator=gen, device=dev) * 3).to(
+            torch.bfloat16)
+        x = torch.randn(rows, d, generator=gen, device=dev).to(torch.bfloat16)
+        w = (1 + 0.2 * torch.randn(d, generator=gen, device=dev)).to(
+            torch.bfloat16)
+        got = txn.add_rmsnorm(y, x, w, alpha, eps)
+        torch.cuda.synchronize()
+        want = txn.add_rmsnorm_plain(y, x, w, alpha, eps)
+        diff = (got.float() - want.float()).abs()
+        room = torch.maximum(_ulp(want), _ulp(got))
+        case = {"max_roundings": float((diff / room).nan_to_num(0.0).max()),
+                "share_differing": float((diff > 0).float().mean()),
+                "finite": bool(torch.isfinite(got).all())}
+        del diff, room, got, want
+        if (rows, d) == TXN_CASES[0]:
+            case["ms"] = cuda_ms(lambda: txn.add_rmsnorm(y, x, w, alpha, eps),
+                                 20)
+            case["plain_ms"] = cuda_ms(
+                lambda: txn.add_rmsnorm_plain(y, x, w, alpha, eps), 5)
+            case["library_ms"] = cuda_ms(
+                lambda: F.rms_norm(y + alpha * x, (d,), w, eps), 5)
+            # y and x read once, the output written once
+            case["bound_ms"], case["bound_by"] = bound(3 * 2 * rows * d, 0)
+        _line("txn", rows=rows, d=d,
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                 for k, v in case.items()})
+        if not (case["finite"] and case["max_roundings"] <= 1.0):
+            _fail(f"tx_norm is {case['max_roundings']} bf16 roundings from "
+                  f"its plain version ([{rows}, {d}])")
+        if (rows, d) == TXN_CASES[0]:
+            out.update(case)
+        else:
+            out.setdefault("ragged", {})[f"{rows}x{d}"] = case
+        del y, x, w
     return out
 
 
@@ -2704,6 +2793,7 @@ def main() -> int:
     # 5d. the transformer-CRF model and its Viterbi kernels ---------------
     tx = tx_phase(dev, levels)
     tx_attention_launches = tx.pop("tx_attention_launches")
+    tx_norm_launches = tx.pop("tx_norm_launches")
     tx_attention_batches = tx.pop("batches")
 
     phase_done("5d")
@@ -2712,6 +2802,9 @@ def main() -> int:
     txa_out = txa_phase(dev, levels, ptxas_summary(
         report["tx_attention"]["ptxas"]) if "tx_attention" in report
         else ["cached"])
+    txn_out = txn_check(dev, ptxas_summary(report["tx_norm"]["ptxas"])
+                        if "tx_norm" in report else ["cached"])
+    txn_out["forward_launches"] = txa_out.pop("tx_norm_forward_launches")
 
     phase_done("5e")
 
@@ -2888,6 +2981,13 @@ def main() -> int:
          "replaces": "none (the transformer-CRF model's attention: rotary "
                      "+ band_attention around SDPA here)", **txa_out,
          "launches": tx_attention_launches,
+         "launch_batches": tx_attention_batches},
+        {"name": "tx_norm", "route": "cuda",
+         "source": "radian_tpu_torch/csrc/tx_norm.cu",
+         "replaces": "none (the transformer-CRF model's DeepNorm residual "
+                     "+ RMSNorm: add_rmsnorm_plain's float32 PyTorch "
+                     "kernels here)", **txn_out,
+         "launches": tx_norm_launches,
          "launch_batches": tx_attention_batches},
     ]
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")

@@ -65,6 +65,10 @@ _SIGNATURES = {
                                  _I, _P], _I),
         "radian_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "tx_norm": {
+        "radian_tx_norm": ([_P, _P, _P, _P, _LL, _I, _F, _F, _I, _P], _I),
+        "radian_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
     "seqmatch": {
         "LongestBlock": ([_P, _L, _P, _L, _P], None),
         "AssembleFragments": ([_P, _P, _L, _P], _L),

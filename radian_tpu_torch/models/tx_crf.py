@@ -31,10 +31,20 @@ The windowed attention takes one of two paths, by
   length; no ``T′×T′`` mask is made.  This path is the kernel's
   yardstick.
 
-In bfloat16 the residual sums, the RMSNorms and the rotary embedding run
-in float32 and round once, on both paths.  Each layer's attention
-(``Wqkv``, rotary, the windowed attention, ``out_proj``) is the span
-``radian.tx.attention``.
+The DeepNorm residual and RMSNorm, ``RMSNorm(y + α·x)``, take one of
+two paths, by ``ops/tx_norm.py``'s ``engages`` (no knob):
+
+- bf16 inference on the card (a CUDA input, a bf16 model, autograd off,
+  ``d_model`` a multiple of 256 up to 1,024): one hand-written kernel a
+  norm, ``csrc/tx_norm.cu``, two a layer, reads ``y`` and ``x`` in bf16
+  and writes the norm in bf16;
+- everything else (float32, the CPU, training): ``add_rmsnorm_plain``,
+  separate PyTorch kernels.  This path is the kernel's yardstick.
+
+Both compute the sum and the norm in float32 and round once; the rotary
+embedding too runs in float32 and rounds once, on both paths.  Each
+layer's attention (``Wqkv``, rotary, the windowed attention,
+``out_proj``) is the span ``radian.tx.attention``.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from torch import nn
 
 from radian_tpu_torch.config import DotDict
 from radian_tpu_torch.ops import tx_attention as txa
+from radian_tpu_torch.ops import tx_norm as txn
 from radian_tpu_torch.utils import profiling
 
 MODEL_TYPE = "bonito_tx_crf"
@@ -107,17 +118,17 @@ def rotary(x: torch.Tensor, base: float) -> torch.Tensor:
 
 class AddRMSNorm(nn.Module):
     """DeepNorm's ``RMSNorm(y + α·x)``, the sum and the norm in float32,
-    rounded once to ``x``'s dtype."""
+    rounded once to ``x``'s dtype: the kernel where ``kernel``, else
+    ``add_rmsnorm_plain``."""
 
     def __init__(self, d: int, alpha: float, eps: float):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(d))
         self.alpha, self.eps = alpha, eps
 
-    def forward(self, y, x):
-        h = y.float() + self.alpha * x.float()
-        h = h * torch.rsqrt(h.pow(2).mean(-1, keepdim=True) + self.eps)
-        return (h * self.weight.float()).to(x.dtype)
+    def forward(self, y, x, kernel: bool = False):
+        norm = txn.add_rmsnorm if kernel else txn.add_rmsnorm_plain
+        return norm(y, x, self.weight, self.alpha, self.eps)
 
 
 class Attention(nn.Module):
@@ -161,12 +172,13 @@ class EncoderLayer(nn.Module):
                                mask).reshape(n, t, d)
         return F.linear(o, a.out_proj.weight, a.out_proj.bias)
 
-    def forward(self, x, mask, table=None):
+    def forward(self, x, mask, table=None, norm_kernel: bool = False):
         with profiling.span("radian.tx.attention", x.device):
             a = self.attention(x, mask, table)
-        x = self.norm1(a, x)
+        x = self.norm1(a, x, norm_kernel)
         y, gate = F.linear(x, self.ff.fc1.weight).chunk(2, -1)
-        return self.norm2(F.linear(y * F.silu(gate), self.ff.fc2.weight), x)
+        return self.norm2(F.linear(y * F.silu(gate), self.ff.fc2.weight), x,
+                          norm_kernel)
 
 
 class TxCrfModel(nn.Module):
@@ -239,8 +251,9 @@ class TxCrfModel(nn.Module):
             mask, table = None, self._table(h.shape[1], h.device)
         else:
             mask, table = self._mask(h.shape[1], h.device), None
+        norm_kernel = txn.engages(self, h)
         for layer in self.encoder:
-            h = layer(h, mask, table)
+            h = layer(h, mask, table, norm_kernel)
         n, t, d = h.shape
         h = self.upsample(h).view(n, t * self.scale_factor, d)
         lin = self.crf(h).view(n, t * self.scale_factor, -1, 4)
