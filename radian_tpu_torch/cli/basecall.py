@@ -16,12 +16,16 @@ Usage:
          [--consensus device]] [--streaming] [--mesh-data N] \
         [--shard-reads]
 
-A ``bonito_tx_crf`` model (Bonito's transformer-CRF basecaller) runs
-through the same command, its yaml given to ``--sig-config`` (weights
-from ``--sig-model`` as an ``.npz`` of its state dict, else seeded):
+A Bonito CRF model, ``bonito_tx_crf`` (the transformer-CRF basecaller)
+or ``bonito_lstm_crf`` (the LSTM-CRF basecaller), runs through the same
+command, its yaml given to ``--sig-config`` (weights from
+``--sig-model`` as an ``.npz`` of its state dict, else seeded):
 
     python -m radian_tpu_torch.cli.basecall FAST5_DIR FASTA_DIR \
         --sig-config tx_sup_v5.yaml --compute-dtype bfloat16 \
+        --chunk-batch 512
+    python -m radian_tpu_torch.cli.basecall FAST5_DIR FASTA_DIR \
+        --sig-config lstm_sup_v4.yaml --compute-dtype bfloat16 \
         --chunk-batch 512
 """
 
@@ -54,8 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the JAX package's weights for --seed)")
     p.add_argument("--sig-config", default=None,
                    help="model config yaml: radian's sig2seq schema, or a "
-                        "bonito_tx_crf model (model.type: bonito_tx_crf, "
-                        "with a basecaller section: chunksize, overlap)")
+                        "Bonito CRF model (model.type: bonito_tx_crf or "
+                        "bonito_lstm_crf, with a basecaller section: "
+                        "chunksize, overlap)")
     p.add_argument("--beam-width", default=6, type=int)
     p.add_argument("--decode-type", choices=["global", "chunk"],
                    default="global")
@@ -120,7 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run one batch per --bucket-lengths entry before "
                         "processing reads")
     p.add_argument("--chunk-batch", default=64, type=int,
-                   help="chunks a batch of a bonito_tx_crf model")
+                   help="chunks a batch of a Bonito CRF model")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain PyTorch "
                         "path")

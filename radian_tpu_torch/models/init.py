@@ -329,3 +329,72 @@ def init_tx_crf(model: DotDict, seed: int = 0) -> dict[str, np.ndarray]:
         else:
             out[name] = uniform(shape, d)
     return out
+
+
+def lstm_crf_param_shapes(model: DotDict) -> dict[str, tuple[int, ...]]:
+    """The ``bonito_lstm_crf`` model's parameter names (``LstmCrfModel``'s
+    state dict, Bonito's ``Serial`` numbering) and shapes, in the order
+    ``init_lstm_crf`` draws them."""
+    shapes: dict[str, tuple[int, ...]] = {}
+    for i, s in enumerate(model.stem):
+        shapes[f"encoder.{i}.conv.weight"] = (s.size, s.insize, s.winlen)
+        shapes[f"encoder.{i}.conv.bias"] = (s.size,)
+    h, insize = model.lstm.size, model.stem[-1].size
+    first = len(model.stem) + 1  # after the permute
+    for i in range(first, first + model.lstm.num_layers):
+        pre = f"encoder.{i}.rnn"
+        shapes[f"{pre}.weight_ih_l0"] = (4 * h, insize)
+        shapes[f"{pre}.weight_hh_l0"] = (4 * h, h)
+        shapes[f"{pre}.bias_ih_l0"] = (4 * h,)
+        shapes[f"{pre}.bias_hh_l0"] = (4 * h,)
+        insize = h
+    pre = f"encoder.{first + model.lstm.num_layers}.linear"
+    shapes[f"{pre}.weight"] = (4 ** model.crf.state_len * 4, h)
+    shapes[f"{pre}.bias"] = (4 ** model.crf.state_len * 4,)
+    return shapes
+
+
+def init_lstm_crf(model: DotDict, seed: int = 0) -> dict[str, np.ndarray]:
+    """``{name: float32 array}`` for a ``bonito_lstm_crf`` model from
+    ``seed``, with Bonito's init (``bonito/nn.py``'s ``RNNWrapper``): each
+    ``hidden``-row gate block of an LSTM weight orthogonal (``torch.nn.
+    init.orthogonal_``'s QR with the signs of R's diagonal), ``bias_ih``
+    0.5 times Bonito's ``truncated_normal`` (the first of 5 normal draws
+    inside ±2, clamped), ``bias_hh`` zero (``disable_state_bias``); the
+    convolutions and the head keep PyTorch's default, uniform in
+    ``±1/sqrt(fan_in)``.  One ``numpy`` generator, the parameters in
+    ``lstm_crf_param_shapes``' order."""
+    model = DotDict(model)
+    rng = np.random.default_rng(int(seed) & (2**64 - 1))
+    h = model.lstm.size
+
+    def orthogonal(rows, cols):
+        a = rng.normal(0.0, 1.0, (rows, cols))
+        if rows < cols:
+            a = a.T
+        q, r = np.linalg.qr(a)
+        q *= np.sign(np.diag(r))
+        return (q.T if rows < cols else q).astype(np.float32)
+
+    def uniform(shape, fan_in):
+        bound = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    out: dict[str, np.ndarray] = {}
+    for name, shape in lstm_crf_param_shapes(model).items():
+        if ".rnn.weight_" in name:
+            out[name] = np.concatenate([orthogonal(h, shape[1])
+                                        for _ in range(4)])
+        elif ".rnn.bias_ih" in name:
+            x = rng.normal(0.0, 1.0, (*shape, 5))
+            first = ((x > -2) & (x < 2)).argmax(-1)[..., None]
+            out[name] = (0.5 * np.clip(np.take_along_axis(x, first, -1)[
+                ..., 0], -2, 2)).astype(np.float32)
+        elif ".rnn.bias_hh" in name:
+            out[name] = np.zeros(shape, np.float32)
+        elif ".conv." in name:
+            s = model.stem[int(name.split(".")[1])]
+            out[name] = uniform(shape, s.insize * s.winlen)
+        else:  # the CRF head
+            out[name] = uniform(shape, h)
+    return out

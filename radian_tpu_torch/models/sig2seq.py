@@ -19,15 +19,21 @@ float32 and are cast per layer, the residual sums run in float32 (see
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from radian_tpu_torch.config import DotDict, default_config
+from radian_tpu_torch.models import lstm_crf, tx_crf
 from radian_tpu_torch.models.checkpoint import params_from_flax
-from radian_tpu_torch.models.init import init_params
+from radian_tpu_torch.models.init import (
+    init_lstm_crf,
+    init_params,
+    init_tx_crf,
+)
 from radian_tpu_torch.models.tcn import TCN
-from radian_tpu_torch.models.tx_crf import MODEL_TYPE, TxCrfModel
 from radian_tpu_torch.ops import tcn_conv
 
 
@@ -113,19 +119,36 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
     return F.linear(x, w) + bias.to(x.dtype)
 
 
+class CrfFamily(NamedTuple):
+    """A Bonito CRF model family: its module, built from a config's
+    ``model`` section and a compute dtype, and its seeded init, from
+    the section and a seed."""
+
+    model: Callable[..., nn.Module]
+    init: Callable[..., dict]
+
+
+# model.type → its family; a config without a type is radian's SigToSeq
+CRF_FAMILIES = {
+    tx_crf.MODEL_TYPE: CrfFamily(tx_crf.TxCrfModel, init_tx_crf),
+    lstm_crf.MODEL_TYPE: CrfFamily(lstm_crf.LstmCrfModel, init_lstm_crf),
+}
+
+
 def build_model(config: DotDict | None = None,
                 compute_dtype: torch.dtype = torch.float32) -> nn.Module:
-    """Construct the config's model: ``TxCrfModel`` where ``model.type``
-    is ``bonito_tx_crf``, else (no ``type``) a SigToSeq (defaults to
-    reference parity)."""
+    """Construct the config's model: its ``CRF_FAMILIES`` module where it
+    has a ``model.type``, else a SigToSeq (defaults to reference
+    parity)."""
     cfg = config if config is not None else default_config()
     m = cfg.model
     kind = m.get("type")
-    if kind == MODEL_TYPE:
-        return TxCrfModel(m, compute_dtype)
     if kind is not None:
-        raise ValueError(f"model.type {kind!r}: {MODEL_TYPE!r}, or none "
-                         "for radian's SigToSeq")
+        if kind not in CRF_FAMILIES:
+            raise ValueError(f"model.type {kind!r}: one of "
+                             f"{', '.join(map(repr, CRF_FAMILIES))}, or "
+                             "none for radian's SigToSeq")
+        return CRF_FAMILIES[kind].model(m, compute_dtype)
     return SigToSeq(
         relu_units=m.relu_units,
         softmax_units=m.softmax_units,

@@ -11,8 +11,9 @@ departures from the published model):
 - ``encoder``: DeepNorm post-norm layers, each windowed multi-head
   attention with rotary embeddings and a SwiGLU feed-forward;
 - ``upsample``: a linear layer to ``scale_factor`` tokens a token;
-- ``crf``: a linear layer to the move scores, ``tanh``·``scale``, the
-  blank score put in front of each state's 4 move scores.
+- ``crf``: the CRF head (``models/crf_head.py``, shared with the
+  LSTM-CRF model): a linear layer to the move scores, ``tanh``·``scale``,
+  the blank score put in front of each state's 4 move scores.
 
 The windowed attention takes one of two paths, by
 ``ops/tx_attention.py``'s ``engages`` (no knob):
@@ -56,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from radian_tpu_torch.config import DotDict
+from radian_tpu_torch.models.crf_head import CrfHead
 from radian_tpu_torch.ops import tx_attention as txa
 from radian_tpu_torch.ops import tx_norm as txn
 from radian_tpu_torch.utils import profiling
@@ -201,12 +203,8 @@ class TxCrfModel(nn.Module):
         self.scale_factor = model.upsample.scale_factor
         self.upsample = nn.Linear(enc.d_model,
                                   self.scale_factor * enc.d_model)
-        crf = model.crf
-        if crf.n_base != 4:
-            raise ValueError(f"n_base {crf.n_base}: the CRF decode takes 4")
-        self.state_len = crf.state_len
-        self.crf = nn.Linear(enc.d_model, 4 ** crf.state_len * 4, bias=False)
-        self.crf_scale, self.blank_score = crf.scale, crf.blank_score
+        self.crf = CrfHead(enc.d_model, model.crf)
+        self.state_len = self.crf.state_len
         self.sample_stride = math.prod(s.stride for s in model.stem)
         if self.sample_stride % self.scale_factor:
             raise ValueError("the stem's stride must divide by the "
@@ -256,10 +254,4 @@ class TxCrfModel(nn.Module):
             h = layer(h, mask, table, norm_kernel)
         n, t, d = h.shape
         h = self.upsample(h).view(n, t * self.scale_factor, d)
-        lin = self.crf(h).view(n, t * self.scale_factor, -1, 4)
-        scores = torch.empty((*lin.shape[:3], 5), dtype=lin.dtype,
-                             device=lin.device)
-        scores[..., 0] = self.blank_score
-        torch.tanh(lin, out=scores[..., 1:])
-        scores[..., 1:] *= self.crf_scale
-        return scores.view(n, t * self.scale_factor, -1)
+        return self.crf(h)

@@ -1,5 +1,5 @@
-"""The CRF Viterbi decode of the transformer-CRF model
-(``csrc/crf_viterbi.cu``).
+"""The CRF Viterbi decode of Bonito's CRF models, the transformer-CRF
+and the LSTM-CRF (``csrc/crf_viterbi.cu``).
 
 Scores ``[N, T, 4^state_len·5]`` (a state's stay score, then its 4
 move scores) → the Viterbi path ``[N, T]`` int8: at each step the base

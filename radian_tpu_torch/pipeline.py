@@ -29,11 +29,12 @@ window on its own and stitches the fragments on the host:
   window keeps a span of labels that partition the read, so the stitch
   is a concatenation, and ``chunk_lm`` fuses the LM into that decode.
 
-A ``bonito_tx_crf`` model (``models/tx_crf.py``, Bonito's
-transformer-CRF basecaller) takes its own path through the same calls:
-each read is cut into the overlapping chunks of its config's
-``basecaller`` section (``ops/chunking.py``), the chunks of many reads
-fill batches of ``chunk_batch`` chunks, and each batch runs
+A Bonito CRF model, ``bonito_tx_crf`` (``models/tx_crf.py``, the
+transformer-CRF basecaller) or ``bonito_lstm_crf``
+(``models/lstm_crf.py``, the LSTM-CRF basecaller), takes its own path
+through the same calls: each read is cut into the overlapping chunks of
+its config's ``basecaller`` section (``ops/chunking.py``), the chunks of
+many reads fill batches of ``chunk_batch`` chunks, and each batch runs
 
   MAD-normalise its whole reads → gather the chunks → the model's CRF
   scores (float32 or bfloat16) → the Viterbi path (two CUDA kernels,
@@ -72,10 +73,13 @@ from radian_tpu_torch.io.fast5 import Fast5Read, iter_fast5_dir
 from radian_tpu_torch.io.fasta import FastaWriter
 from radian_tpu_torch.lm.kmer import KmerLM, load_kmer_json
 from radian_tpu_torch.models.checkpoint import load_params_npz, params_from_flax
-from radian_tpu_torch.models.init import init_params, init_tx_crf
+from radian_tpu_torch.models.init import init_params
 from radian_tpu_torch.models.keras_import import load_keras_h5
-from radian_tpu_torch.models.sig2seq import SigToSeq, build_model
-from radian_tpu_torch.models.tx_crf import MODEL_TYPE, TxCrfModel
+from radian_tpu_torch.models.sig2seq import (
+    CRF_FAMILIES,
+    SigToSeq,
+    build_model,
+)
 from radian_tpu_torch.ops import chunking
 from radian_tpu_torch.ops.assembly import assemble_matrices, row_sum
 from radian_tpu_torch.ops.beam_cuda import (
@@ -185,8 +189,9 @@ class BasecallOptions:
     reference's, or 'mean').  'mean' and a geometry the fast forwards
     cannot take always run the windowed forward.
 
-    A ``bonito_tx_crf`` model takes ``chunk_batch``, ``outlier_clip``
-    and ``bucket_quantum`` (its reads' padding) alone.
+    A CRF model (``bonito_tx_crf``, ``bonito_lstm_crf``) takes
+    ``chunk_batch``, ``outlier_clip`` and ``bucket_quantum`` (its reads'
+    padding) alone.
     """
 
     chunk_len: int = 1024
@@ -216,8 +221,8 @@ class BasecallOptions:
     # LM table storage: 'auto' = bfloat16 when the forward runs in
     # bfloat16, float32 otherwise; the fusion runs in float32 on the rows
     lm_table_dtype: str = "auto"  # 'auto' | 'float32' | 'bfloat16'
-    # chunks a batch of a bonito_tx_crf model (its config's basecaller
-    # section sets the chunk's samples and overlap)
+    # chunks a batch of a CRF model (its config's basecaller section
+    # sets the chunk's samples and overlap)
     chunk_batch: int = 64
 
 
@@ -705,29 +710,30 @@ class ChunkPath(_RadianPath):
 
 
 class CrfPath:
-    """The transformer-CRF path (module docstring) of a ``bonito_tx_crf``
-    model: one replica, no LM, chunks of ``size`` samples overlapping by
-    ``overlap`` (its config's ``basecaller`` section), ``step`` samples a
-    decoded step, a CRF of ``state_len``, ``options.chunk_batch`` chunks
-    a batch."""
+    """The CRF path (module docstring) of a Bonito model of either
+    family, ``kind`` its ``model.type``: one replica, no LM, chunks of
+    ``size`` samples overlapping by ``overlap`` (its config's
+    ``basecaller`` section), ``step`` samples a decoded step, a CRF of
+    ``state_len``, ``options.chunk_batch`` chunks a batch."""
 
     plan_span = "radian.tx.chunk"
     render_span = "radian.tx.stitch"
     render_on_device = False
 
-    def __init__(self, model: TxCrfModel, config: DotDict,
+    def __init__(self, model: torch.nn.Module, config: DotDict,
                  options: BasecallOptions, has_lm: bool, n_devices: int):
         o = self.options = options
+        kind = self.kind = config.model.type
         if has_lm:
-            raise ValueError(f"a {MODEL_TYPE} model decodes without an LM")
+            raise ValueError(f"a {kind} model decodes without an LM")
         if n_devices != 1:
             raise NotImplementedError(
-                f"a {MODEL_TYPE} model runs on one device, not a mesh")
+                f"a {kind} model runs on one device, not a mesh")
         if o.chunk_batch < 1:
             raise ValueError(f"chunk_batch {o.chunk_batch} < 1")
         section = config.get("basecaller")
         if section is None:
-            raise ValueError(f"a {MODEL_TYPE} config needs a basecaller "
+            raise ValueError(f"a {kind} config needs a basecaller "
                              "section (chunksize, overlap)")
         self.size = int(section.chunksize)
         self.overlap = int(section.overlap)
@@ -750,7 +756,7 @@ class CrfPath:
 
     def check_streaming(self) -> None:
         raise NotImplementedError(
-            f"streaming a {MODEL_TYPE} model: use basecall_signals")
+            f"streaming a {self.kind} model: use basecall_signals")
 
     def run(self, bc: "Basecaller", batch: chunking.ChunkBatch, reads,
             lengths, table):
@@ -800,8 +806,8 @@ class Basecaller:
     ``self.path`` is the decode path the constructor chose, with its
     geometry: ``GlobalPath`` or ``ChunkPath`` by ``options.decode_type``
     for radian's model, ``CrfPath`` for a config whose ``model.type`` is
-    ``bonito_tx_crf`` (the transformer-CRF model and its chunks, module
-    docstring).
+    a Bonito CRF family's (``bonito_tx_crf``, ``bonito_lstm_crf``: the
+    model and its chunks, module docstring).
     """
 
     def __init__(
@@ -843,13 +849,15 @@ class Basecaller:
         self.model = build_model(self.config, compute_dtype)
         self.model.load_state_dict(params)
         self.model.to(self.device).eval()
-        # the one choice of decode path: the model's family, then the mode
-        if isinstance(self.model, TxCrfModel):
+        # the one choice of decode path: the model's family (a CRF model
+        # of either family has the geometry CrfPath reads:
+        # sample_stride, stride, state_len), then the mode
+        if hasattr(self.model, "state_len"):
             if o.decode_type != "global":
                 raise ValueError(
                     f"decode_type={o.decode_type!r} is radian's; a "
-                    f"{MODEL_TYPE} model chunks by its config's "
-                    "basecaller section")
+                    f"{self.config.model.type} model chunks by its "
+                    "config's basecaller section")
             self.path = CrfPath(self.model, self.config, o, lm is not None,
                                 len(devices))
         else:
@@ -1047,7 +1055,7 @@ class Basecaller:
                                                          p.chunk_cap // 4),
                 n_lab.reshape(n, d).to(torch.int32))
 
-    # the transformer-CRF path
+    # the CRF path
 
     @torch.inference_mode()
     def crf_scores(self, reads: torch.Tensor, lengths: torch.Tensor,
@@ -1288,9 +1296,9 @@ def load_basecaller(
     ``checkpoint`` is a flax-layout ``.npz`` (the JAX package's format)
     or the reference's Keras weights ``.h5`` (needs ``h5py``);
     ``rna_model`` the reference's k-mer LM JSON (None or 'None': no LM).
-    A ``bonito_tx_crf`` config takes an ``.npz`` of ``TxCrfModel``'s
-    state dict, or none: Bonito's init for ``seed`` (published Bonito
-    weights do not load yet).
+    A Bonito CRF config (``bonito_tx_crf``, ``bonito_lstm_crf``) takes
+    an ``.npz`` of its model's state dict, or none: Bonito's init for
+    ``seed`` (published Bonito weights do not load yet).
     """
     device = resolve_device(device)
     if config_path is None:
@@ -1299,14 +1307,15 @@ def load_basecaller(
         from radian_tpu_torch.config import get_config
 
         config = get_config(config_path)
-    if config.model.get("type") == MODEL_TYPE:
+    family = CRF_FAMILIES.get(config.model.get("type"))
+    if family is not None:
         if checkpoint is None:
-            weights = init_tx_crf(config.model, seed)
+            weights = family.init(config.model, seed)
         elif str(checkpoint).endswith(".npz"):
             weights = load_params_npz(checkpoint)
         else:
-            raise ValueError(f"a {MODEL_TYPE} checkpoint is an .npz of its "
-                             f"state dict, not {checkpoint}")
+            raise ValueError(f"a {config.model.type} checkpoint is an .npz "
+                             f"of its state dict, not {checkpoint}")
         params = {k: torch.from_numpy(np.asarray(v))
                   for k, v in weights.items()}
     elif checkpoint is None:
