@@ -88,6 +88,15 @@ card, and checks them:
               768 and 1,024, every element within one bf16 rounding;
               timed beside its bound, the plain version and F.rms_norm
               on y + alpha * x (library_ms)
+  5f. overlap  the two-deep dispatch loop: one 3-batch call against the
+              same reads sent one batch a call (nothing overlaps there),
+              strings equal, for the global path with phase 5b's LM (bf16,
+              read_batch 64) and the CRF path with the tiny transformer
+              (tests/torch_tx_tiny.py, bf16, chunk_batch 16, against each
+              read alone); the bulk call once under
+              torch.cuda.set_sync_debug_mode("warn") (no synchronising
+              operation on the global path) and once traced for the
+              renders_overlapped / renders counters
   6. kernels  each no-LM kernel vs its plain version on the inputs the main
               path gave it (the first batch), timed with CUDA events,
               beside its bound (bytes or operations over the H100's peaks);
@@ -213,7 +222,7 @@ card, and checks them:
 Each phase prints its seconds ("[phase-time] step=...").
 
 Prints one JSON line of phase 9's numbers, the nvidia-smi line, one JSON
-line of kernel numbers, and last
+line of kernel numbers, one of phase 5f's counters, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises, so the script
 exits non-zero before that line.  Needs one CUDA device, nvcc and g++:
 
@@ -2596,6 +2605,90 @@ def txn_check(dev, ptxas: list[str]) -> dict:
     return out
 
 
+# phase 5f: lengths of one 12,288-sample bucket, 3 batches of 64 reads;
+# the tiny transformer's reads cut into 16 + 16 + 8 chunks
+OVERLAP_BATCH = 64
+OVERLAP_LENGTHS = (8193, 12289)
+OVERLAP_TX_LENGTHS = (30000, 45000, 52000, 38000, 60000, 41000, 47000,
+                      33000, 25000, 36000)
+
+
+def overlap_phase(dev, flat, lm, levels) -> dict:
+    """Phase 5f (above): each path's bulk call against one batch a call,
+    its synchronising operations, and its overlapped renders."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.core import reference_tx_crf as ref
+    from radian_tpu_torch.config import DotDict
+    from radian_tpu_torch.models.checkpoint import params_from_flax
+    from radian_tpu_torch.pipeline import Basecaller, BasecallOptions
+    from radian_tpu_torch.utils import profiling
+    from tests.torch_tx_tiny import config as tx_tiny
+
+    rng = np.random.default_rng(23)
+    glob = Basecaller(params_from_flax(flat), lm=lm, options=BasecallOptions(
+        beam_width=6, read_batch=OVERLAP_BATCH, bucket_quantum=4096),
+        compute_dtype=torch.bfloat16, device=dev)
+    g_reads = synth_signals(rng, rng.integers(*OVERLAP_LENGTHS,
+                                              3 * OVERLAP_BATCH), levels)
+    cfg = DotDict(tx_tiny())
+    tx = Basecaller({k: torch.from_numpy(v) for k, v in
+                     ref.bonito_init(cfg.model, 7).items()}, cfg, None,
+                    BasecallOptions(chunk_batch=16), torch.bfloat16,
+                    device=dev)
+    t_reads = synth_signals(rng, OVERLAP_TX_LENGTHS, levels)
+    out = {}
+    for name, bc, reads, alone in (
+            ("global-lm", glob, g_reads,
+             [idxs for idxs, _ in glob.batches(g_reads)]),
+            ("tx-tiny", tx, t_reads, [[i] for i in range(len(t_reads))])):
+        n_batches = len(bc.path.plan(bc, reads))
+        if n_batches != 3:
+            _fail(f"phase 5f's {name} reads make {n_batches} batches, not 3")
+        bc.basecall_signals(reads)  # warm-up
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                bulk = bc.basecall_signals(reads)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+        want = [None] * len(reads)
+        for idxs in alone:
+            for i, seq in zip(idxs, bc.basecall_signals(
+                    [reads[i] for i in idxs])):
+                want[i] = seq
+        profiling.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            traced = bc.basecall_signals(reads)
+        counts = profiling.counters()
+        profiling.reset()
+        same = sum(a == b for a, b in zip(bulk, want))
+        out[name] = {"renders": counts.get("renders", 0),
+                     "renders_overlapped": counts.get("renders_overlapped",
+                                                      0),
+                     "sync_warnings": syncs}
+        _line("overlap", path=name, reads=len(reads), batches=n_batches,
+              identical_to_one_batch_a_call=same,
+              traced_identical=traced == bulk, **out[name])
+        if same != len(reads) or traced != bulk or any(not x for x in bulk):
+            _fail(f"phase 5f: the {name} bulk call's strings differ from "
+                  "one batch a call's")
+        if out[name]["renders"] != n_batches:
+            _fail(f"phase 5f: {out[name]['renders']} renders counted over "
+                  f"{n_batches} batches ({name})")
+    if out["global-lm"]["sync_warnings"]:
+        _fail("phase 5f: the global path synchronised the stream "
+              f"{out['global-lm']['sync_warnings']} times in a bulk call")
+    return out
+
+
 def synth_signals(rng, lengths, levels):
     from radian_tpu_torch.utils.synthetic import synth_read
 
@@ -2808,6 +2901,11 @@ def main() -> int:
 
     phase_done("5e")
 
+    # 5f. the two-deep dispatch loop's overlap ------------------------------
+    overlap = overlap_phase(dev, flat, lm_run["lm"], levels)
+
+    phase_done("5f")
+
     # 6. kernels on the main path's inputs (first batch) -----------------
     mats, t_reads = first
     n_b, t_b, _ = mats.shape
@@ -2994,6 +3092,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"overlap": overlap}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -79,12 +79,14 @@ def mad_normalise(signals: torch.Tensor, lengths: torch.Tensor,
     x = signals.float()
     n = lengths.to(device=x.device, dtype=torch.int64)
     valid = torch.arange(x.shape[1], device=x.device)[None, :] < n[:, None]
-    big = torch.tensor(float("inf"), device=x.device)
+    # constants filled on the device: a host scalar copied in would
+    # synchronise the stream, and wait for the batches queued before
+    big = torch.full((), float("inf"), device=x.device)
     median = _masked_median(torch.sort(torch.where(valid, x, big), 1).values, n)
     dev = torch.abs(x - median)
     mad = _masked_median(torch.sort(torch.where(valid, dev, big), 1).values, n)
     # a float32 constant, like JAX's weak-typed MAD_SCALE * mad
-    scale = torch.tensor(MAD_SCALE, dtype=torch.float32, device=x.device)
+    scale = torch.full((), MAD_SCALE, dtype=torch.float32, device=x.device)
     z = (x - median) / (scale * mad)
     z = torch.clamp(z, -outlier_clip, outlier_clip)
     return torch.where(valid, z, torch.zeros((), device=x.device)), mad[:, 0]

@@ -47,9 +47,15 @@ Each of the three is one path object (``GlobalPath``, ``ChunkPath``,
 ingest, padding, label rendering, the stitch and fasta output, in
 batches or streaming, for any of them.  On a mesh (``mesh=``, from
 ``parallel.make_mesh``) each padded batch's rows are split over the
-``data`` axis, one model replica on each device, each slice run and
-copied back from its own host thread, and the strings joined in row
-order: the unsharded strings, read for read.
+``data`` axis, one model replica on each device, each slice run from
+its own host thread, and the strings joined in row order: the
+unsharded strings, read for read.
+
+Two batches are in flight: batch k+1 is launched before batch k is
+rendered.  A CUDA replica uploads from pinned host memory and queues
+its record's copy back into pinned host tensors behind the batch's
+work, with an event after it; the render of batch k waits on that
+event alone, so it runs while the device works on batch k+1.
 """
 
 from __future__ import annotations
@@ -255,6 +261,19 @@ def _on(device: torch.device):
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+class _Pending(NamedTuple):
+    """A slice's record on its way to the host: its host tensors, pinned
+    on a CUDA replica, and the event recorded on the replica's stream
+    after their copies (None where the record was made on the host)."""
+
+    tensors: list
+    event: torch.cuda.Event | None
+
+    def ready(self) -> bool:
+        """Whether the copies are done; never blocks."""
+        return self.event is None or self.event.query()
 
 
 class ReadBatch(NamedTuple):
@@ -868,8 +887,8 @@ class Basecaller:
         home = devices.index(self.device)
         self._replicas = [self if i == home else self._replica(d)
                           for i, d in enumerate(devices)]
-        # two threads a replica (on a mesh of several): one slice's host
-        # copy waits while the next batch's slice is queued
+        # two threads a replica (on a mesh of several): one batch's slice
+        # launches while the previous one's still does
         self._shard_pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=2 * len(devices), thread_name_prefix="radian-shard")
         # the sequence number of a call, which its spans carry
@@ -1146,17 +1165,35 @@ class Basecaller:
     def _run_batches(self, batches, results,
                      collected=lambda batch: None) -> None:
         """Each ``(signals, batch)`` of ``batches`` run on the device and
-        rendered into ``results``, two in flight: batch k+1 is dispatched
+        rendered into ``results``, two in flight: batch k+1 is launched
         before batch k is rendered; ``collected(batch)`` follows each
-        render.  A lone replica's copy back blocks, so the render of
-        batch k does not overlap the device."""
+        render.  A CUDA replica's copy back is queued, not waited for,
+        so the render of batch k waits on batch k's event alone and runs
+        while the device works on batch k+1.
+
+        While tracing, the renders of records copied back from a card
+        are counted (``renders``), and so are those that began before a
+        later batch's copies were done (``renders_overlapped``)."""
         inflight = []
 
         def collect():
             batch, futures, k = inflight.pop(0)
-            # the slices' records (host arrays, in row order), each array
-            # joined by rows
-            parts = [f.result() for f in futures]
+            pending = [f.result() for f in futures]
+            events = [p.event for p in pending if p.event is not None]
+            if events:
+                # this batch's own events: never the stream or the
+                # device, which would wait for batch k+1 too
+                with profiling.span("radian.d2h.wait", batch=k):
+                    for ev in events:
+                        ev.synchronize()
+                if profiling.tracing():
+                    profiling.count("renders", 1)
+                    profiling.count("renders_overlapped", int(any(
+                        not f.done() or not f.result().ready()
+                        for _, later, _ in inflight for f in later)))
+            # the slices' records (numpy views, each holding its tensor,
+            # in row order), each array joined by rows
+            parts = [[x.numpy() for x in p.tensors] for p in pending]
             record = (parts[0] if len(parts) == 1
                       else [np.concatenate(f) for f in zip(*parts)])
             p = self.path
@@ -1174,13 +1211,14 @@ class Basecaller:
             collect()
 
     def _dispatch_batch(self, batch, signals, k: int) -> list:
-        """Run batch ``k``'s device work, a row slice a replica; returns
-        the slices' futures, in row order.  Several replicas each run on a
-        shard thread, so that one device's host copy does not hold back
-        the others.  A lone replica runs on the calling thread, where a
-        card's queue is the same and torch's CPU ops keep their speed
-        (from a worker thread they ran at about half of it): its future
-        is finished, the batch copied back, when this returns."""
+        """Launch batch ``k``'s device work, a row slice a replica;
+        returns the slices' futures of their ``_Pending`` records, in row
+        order.  Several replicas each launch from a shard thread, so that
+        one device's launches do not hold back the others.  A lone
+        replica launches on the calling thread, where a card's queue is
+        the same and torch's CPU ops keep their speed (from a worker
+        thread they ran at about half of it): its future is finished
+        when this returns, its copy back queued behind the batch."""
         split = data_sharding(self.mesh)
         with profiling.span("radian.pad", batch=k):
             host = batch.host_arrays(signals, self.options.bucket_quantum)
@@ -1195,18 +1233,33 @@ class Basecaller:
                 for rep, *arrays in zip(self._replicas, *parts)]
 
     def _slice_to_host(self, host: list[torch.Tensor], batch, parent,
-                       k: int) -> list[np.ndarray]:
-        """A mesh slice, on a shard thread: its host arrays (rows of the
-        batch's ``host_arrays``) copied to this replica's device and
-        through the path's device run, the record copied back to the host
-        (``parent`` and ``k``: its spans')."""
+                       k: int) -> _Pending:
+        """A mesh slice: its host arrays (rows of the batch's
+        ``host_arrays``) copied to this replica's device and through the
+        path's device run, and its record sent back to the host
+        (``parent`` and ``k``: its spans').
+
+        On a CUDA replica nothing here waits for the device: the inputs
+        go up from pinned memory (the caching host allocator keeps a
+        buffer until its copy has run), and the record comes back into
+        pinned host tensors behind the batch's work, with an event
+        after the copies."""
+        cuda = self.device.type == "cuda"
         with _on(self.device), profiling.within(parent, k):
             with profiling.span("radian.h2d", self.device):
-                arrays = [x.to(self.device) for x in host]
+                arrays = [(x.pin_memory() if cuda else x).to(
+                    self.device, non_blocking=True) for x in host]
             with torch.inference_mode():
                 record = self.path.run(self, batch, *arrays)
             with profiling.span("radian.d2h", self.device):
-                return [x.cpu().numpy() for x in record]
+                if not cuda:
+                    return _Pending(list(record), None)
+                out = [torch.empty(x.shape, dtype=x.dtype,
+                                   pin_memory=True).copy_(x, non_blocking=True)
+                       for x in record]
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                return _Pending(out, done)
 
     def basecall_stream(self, reads: Iterable[Fast5Read],
                         writer: FastaWriter,
