@@ -97,6 +97,14 @@ card, and checks them:
               torch.cuda.set_sync_debug_mode("warn") (no synchronising
               operation on the global path) and once traced for the
               renders_overlapped / renders counters
+  5g. crf-loss  the CTC-CRF loss kernels (csrc/crf_loss.cu, forward and
+              backward) vs their plain version (ops/crf_loss.py's
+              loss_plain / grad_plain, the CPU path) on the card at the
+              LSTM training cell's shapes (64 rows, 1,666 steps, 1,024
+              states, targets of 780-820 bases, rows of zero upstream
+              gradient), float32 and bf16 scores: two launches, losses
+              within CRF_LOSS_RTOL, gradients within CRF_GRAD_ATOL (f32)
+              or one bf16 rounding; timed beside their bound
   6. kernels  each no-LM kernel vs its plain version on the inputs the main
               path gave it (the first batch), timed with CUDA events,
               beside its bound (bytes or operations over the H100's peaks);
@@ -218,6 +226,16 @@ card, and checks them:
               (counts set to 0 just before), and Basecaller(mesh=
               make_mesh(2, 2, [cuda:0] * 4)) gives phase 5's strings on
               them, the kernels launched once a data slice
+  12. lstm-train-graphs  the LSTM-CRF's training step with its layers
+              as CUDA graphs (models/lstm_crf.py) against the same step
+              with them ungraphed (cuDNN's bf16 RNN launched step by
+              step), at the training cell's shapes (lstm_sup_bf16.train:
+              64 chunks of 9,996 samples, ~800 target bases, Bonito's
+              seeded weights, its first three AdamW steps each): the
+              first batch's row losses and the first step's loss within
+              LSTM_GRAPH_LOSS_RTOL, its clipped gradient within
+              LSTM_GRAPH_GRAD_RTOL of each leaf's largest entry; five
+              layers graphed, none ungraphed
 
 Each phase prints its seconds ("[phase-time] step=...").
 
@@ -246,7 +264,7 @@ TRAINED = REPO / "bench_data" / "trained" / "params.npz"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 # phase 6b: the plain LM decode runs this many steps of the first batch
-LM_PLAIN_STEPS = 8192
+LM_PLAIN_STEPS = 4096
 # phase 3b: (beam, ctx_len, packed, bf16 tables, (s_thr, r_thr), zeros)
 LM_CASES = ((6, 11, False, False, (0.5, 0.5), False),
             (6, 11, False, True, (0.0, 10.0), False),
@@ -2364,6 +2382,177 @@ def tx_phase(dev, levels) -> dict:
             "tx_norm_launches": txn_launches, "batches": len(plan)}
 
 
+# phase 5g: the CTC-CRF loss kernels (csrc/crf_loss.cu) against their
+# plain version (ops/crf_loss.py::loss_plain / grad_plain, the CPU path's
+# algorithm) on the card, at the training cell's shapes: 64 chunks of
+# 1,666 steps over 4^5 states, targets of 780-820 bases, scores of the
+# head's range (blank 2, moves 5·tanh) in float32 and in bf16, rows of
+# upstream gradient 0 among them.  Both paths sum in float32 and add the
+# step offsets in float64, in other orders: the losses (~1-10) agree to
+# CRF_LOSS_RTOL; the gradient's entries (posteriors over the target's
+# length, at most ~2.4e-3) to CRF_GRAD_ATOL in float32; in bf16 the
+# same, then each rounded: within CRF_GRAD_ATOL and one bf16 rounding (a
+# unit in the last place, at most 2^-7 of the larger).
+CRF_LOSS_SHAPE = (64, 1666, 5)  # rows, steps, state_len
+CRF_TARGET_BASES = (780, 820)
+CRF_LOSS_RTOL = 1e-5
+CRF_GRAD_ATOL = 1e-7
+
+
+def crf_loss_phase(dev, ptxas: list[str]) -> dict:
+    """Phase 5g (above): the loss kernels against their plain version,
+    two launches a forward and backward, timed beside their bound."""
+    import torch
+
+    from benchmark.core import counts_crf_loss as cnt
+    from radian_tpu_torch.ops import crf_loss as cl
+
+    n, t_len, state_len = CRF_LOSS_SHAPE
+    s_n = 4 ** state_len
+    gen = torch.Generator(device=dev).manual_seed(23)
+    moves = 5.0 * torch.tanh(1.5 * torch.randn(n, t_len, s_n, 4, device=dev,
+                                               generator=gen))
+    scores = torch.cat([torch.full_like(moves[..., :1], 2.0), moves],
+                       -1).reshape(n, t_len, -1)
+    rng = np.random.default_rng(23)
+    lengths = rng.integers(*CRF_TARGET_BASES, n)
+    targets = torch.from_numpy(rng.integers(0, 4, (n, lengths.max()))
+                               ).to(dev)
+    lens = torch.from_numpy(lengths)
+    grad_out = torch.from_numpy(np.where(np.arange(n) % 8 == 7, 0.0,
+                                         rng.uniform(0.5, 2.0, n))
+                                .astype(np.float32)).to(dev)
+    out = {"ptxas": ptxas}
+    for dtype in (torch.float32, torch.bfloat16):
+        sc = scores.to(dtype).requires_grad_(True)
+        cl.crf_loss.launches = 0
+        loss = cl.crf_loss(sc, targets, lens, state_len)
+        (grad,) = torch.autograd.grad(loss, sc, grad_out)
+        torch.cuda.synchronize()
+        launches = cl.crf_loss.launches
+        t0 = time.perf_counter()
+        want, saved = cl.loss_plain(sc.detach(), targets, lens, state_len)
+        grad_p = cl.grad_plain(sc.detach(), saved, grad_out, state_len)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        del saved
+        loss_err = float(((loss.detach() - want).abs() / want.abs()).max())
+        diff = (grad.float() - grad_p.float()).abs()
+        if dtype == torch.float32:
+            grad_ok = float(diff.max()) <= CRF_GRAD_ATOL
+        else:
+            top = torch.maximum(grad.float().abs(), grad_p.float().abs())
+            grad_ok = bool((diff <= top * 2.0 ** -7 + CRF_GRAD_ATOL).all())
+        zero_rows = bool((grad[grad_out == 0] == 0).all())
+        name = "f32" if dtype == torch.float32 else "bf16"
+        _line("crf-loss", dtype=name, rows=n, steps=t_len, states=s_n,
+              launches=launches, loss_rel_err=f"{loss_err:.2e}",
+              grad_max_abs_diff=f"{float(diff.max()):.2e}",
+              grad_max=f"{float(grad_p.float().abs().max()):.3e}",
+              zero_rows=zero_rows, plain_s=f"{plain_s:.1f}")
+        if launches != 2:
+            _fail(f"crf_loss launched {launches} times for a forward and a "
+                  "backward (want 2)")
+        if not (loss_err <= CRF_LOSS_RTOL and grad_ok and zero_rows):
+            _fail(f"the CRF loss kernels disagree with the plain version "
+                  f"({name}: loss {loss_err:.2e}, gradient "
+                  f"{float(diff.max()):.2e})")
+        fwd = cl.crf_loss(sc, targets, lens, state_len)
+        fwd_ms = cuda_ms(lambda: cl.crf_loss(sc, targets, lens, state_len), 3)
+        both_ms = cuda_ms(lambda: torch.autograd.grad(
+            cl.crf_loss(sc, targets, lens, state_len), sc, grad_out), 3)
+        del fwd, grad, grad_p, diff
+        positions = cnt.positions(lengths, state_len)
+        bound_s = cnt.loss_bound_s(n, t_len, state_len, positions,
+                                   2 if dtype == torch.bfloat16 else 4)
+        _line("crf-loss-kernels", dtype=name, forward_ms=f"{fwd_ms:.3f}",
+              backward_ms=f"{both_ms - fwd_ms:.3f}",
+              us_per_step=f"{both_ms * 1e3 / t_len:.3f}",
+              bound_ms=f"{bound_s * 1e3:.3f}",
+              share=f"{bound_s * 1e3 / both_ms:.3f}")
+        out[name] = {"loss_rel_err": loss_err, "forward_ms": fwd_ms,
+                     "both_ms": both_ms, "bound_ms": bound_s * 1e3,
+                     "plain_s": plain_s}
+    return out
+
+
+# phase 12: the LSTM-CRF's training step with its layers graphed against
+# the same layers ungraphed, through the training cell's own set-up
+# (benchmark/kinds/lstm_crf_trainer.py) at its shapes, from the same
+# seed: both launch the same cuDNN kernels on the same inputs, only their
+# capture differs, so the row losses (taken before the first step, no
+# graph) and the first step agree to the kernels' own run-to-run order
+# of sums: the losses to a bf16 rounding's worth, each
+# leaf of its clipped gradient to a few bf16 roundings (2^-8 each) of
+# the leaf's largest entry (H100 80GB HBM3 at 700 W: the loss bit for
+# bit, the gradient 0.4 % of a leaf's largest).
+LSTM_GRAPH_SEED = 3100000000023
+LSTM_GRAPH_LOSS_RTOL = 2.0 ** -8
+LSTM_GRAPH_GRAD_RTOL = 4 * 2.0 ** -8
+
+
+def lstm_train_graph_phase(dev) -> dict:
+    """Phase 12 (above): the graphed training step against the ungraphed
+    one; their losses and the set-up's seconds."""
+    import gc
+    from unittest import mock
+
+    import torch
+
+    from benchmark.core import spec
+    from benchmark.kinds import lstm_crf_trainer as kind
+
+    c = spec.cell(REPO, "lstm_sup_bf16.train")
+    c["traffic"] = dict(c["traffic"], pool_batches=kind.CHECK_STEPS)
+    runs = {}
+    for name in ("graphed", "ungraphed"):
+        t0 = time.perf_counter()
+        if name == "graphed":
+            cell = kind.setup(REPO, c, LSTM_GRAPH_SEED, dev)
+        else:  # the layers' own module in place of its graphs
+            with mock.patch.object(torch.cuda, "make_graphed_callables",
+                                   lambda layer, sample: layer):
+                cell = kind.setup(REPO, c, LSTM_GRAPH_SEED, dev)
+        graphs = cell.tr.model._graphs
+        runs[name] = {
+            "losses": cell.losses, "rows": cell.row_losses,
+            "grad": cell.grad, "seconds": time.perf_counter() - t0,
+            # a graphed module's forward is its own, the graphs' replay
+            "graphed_layers": sum("forward" in vars(g)
+                                  for _, g in graphs.values()),
+            "layers": len(graphs)}
+        del cell, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+    g, u = runs["graphed"], runs["ungraphed"]
+    loss_rel = abs(g["losses"][0] - u["losses"][0]) / abs(u["losses"][0])
+    grad_rel = max(float((g["grad"][k] - v).abs().max()
+                         / v.abs().max().clamp_min(1e-30))
+                   for k, v in u["grad"].items())
+    rows_rel = float(((g["rows"] - u["rows"]).abs()
+                      / u["rows"].abs().clamp_min(1e-30)).max())
+    _line("lstm-train-graphs", rows=int(g["rows"].numel()),
+          layers=f"{g['graphed_layers']}/{g['layers']} graphed, "
+                 f"{u['graphed_layers']}/{u['layers']} ungraphed",
+          rows_rel=f"{rows_rel:.2e}", loss_rel=f"{loss_rel:.2e}",
+          grad_rel_max=f"{grad_rel:.2e}",
+          losses_graphed=[round(v, 6) for v in g["losses"]],
+          losses_ungraphed=[round(v, 6) for v in u["losses"]],
+          setup_s=f"{g['seconds']:.1f}/{u['seconds']:.1f}")
+    if (g["layers"], g["graphed_layers"], u["graphed_layers"]) != (5, 5, 0):
+        _fail("the graphed run did not graph its five LSTM layers, or the "
+              "ungraphed run graphed some")
+    if not (max(rows_rel, loss_rel) <= LSTM_GRAPH_LOSS_RTOL
+            and grad_rel <= LSTM_GRAPH_GRAD_RTOL):
+        _fail(f"the graphed LSTM training step disagrees with the "
+              f"ungraphed one (rows {rows_rel:.2e}, loss {loss_rel:.2e}, "
+              f"gradient {grad_rel:.2e})")
+    return {"rows_rel": rows_rel, "loss_rel": loss_rel,
+            "grad_rel_max": grad_rel,
+            "losses": {k: r["losses"] for k, r in runs.items()},
+            "setup_s": {k: r["seconds"] for k, r in runs.items()}}
+
+
 # phase 5e: the transformer-CRF windowed attention kernel
 # (csrc/tx_attention.cu) against its plain version on the card, on random
 # q, k, v of scale 2 at the published window (127, 128): the main path's
@@ -2906,6 +3095,12 @@ def main() -> int:
 
     phase_done("5f")
 
+    # 5g. the CTC-CRF loss kernels ------------------------------------------
+    crf_loss_out = crf_loss_phase(dev, ptxas_summary(
+        report["crf_loss"]["ptxas"]) if "crf_loss" in report else ["cached"])
+
+    phase_done("5g")
+
     # 6. kernels on the main path's inputs (first batch) -----------------
     mats, t_reads = first
     n_b, t_b, _ = mats.shape
@@ -3030,6 +3225,10 @@ def main() -> int:
              for k in ("float32", "bfloat16")}, tmp / "tp")
         train["tensor_parallel"] = tp
         phase_done("11")
+
+    # 12. the LSTM-CRF's training step, graphed and not -------------------
+    train["lstm_graphs"] = lstm_train_graph_phase(dev)
+    phase_done("12")
     kernels = [
         {"name": "beam_decode", "route": "cuda",
          "source": "radian_tpu_torch/csrc/beam_search.cu",
@@ -3087,6 +3286,10 @@ def main() -> int:
                      "kernels here)", **txn_out,
          "launches": tx_norm_launches,
          "launch_batches": tx_attention_batches},
+        {"name": "crf_loss", "route": "cuda",
+         "source": "radian_tpu_torch/csrc/crf_loss.cu",
+         "replaces": "none (the CRF models' training loss: loss_plain / "
+                     "grad_plain's PyTorch loops here)", **crf_loss_out},
     ]
     _line("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"train": train}))

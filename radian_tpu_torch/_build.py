@@ -60,6 +60,13 @@ _SIGNATURES = {
         "radian_crf_backtrace": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
         "radian_cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "crf_loss": {
+        "radian_crf_loss_forward": ([_P, _I, _P, _I, _P, _I, _I, _I, _I, _P,
+                                     _P, _P, _P, _P, _I, _P], _I),
+        "radian_crf_loss_backward": ([_P, _I, _P, _I, _P, _I, _I, _I, _I, _P,
+                                      _P, _P, _P, _P, _P, _I, _P], _I),
+        "radian_cuda_error_string": ([_I], ctypes.c_char_p),
+    },
     "tx_attention": {
         "radian_tx_attention": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                  _I, _P], _I),

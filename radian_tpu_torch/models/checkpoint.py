@@ -155,7 +155,10 @@ def tensors_to_flax(named) -> dict[str, np.ndarray]:
         a = t.detach().to("cpu", torch.float32).numpy()
         if a.ndim > 1:
             a = a.transpose(2, 1, 0) if a.ndim == 3 else a.T
-        out[flax_name(name)] = np.ascontiguousarray(a)
+        # a copy: a bias's array would share the parameter's memory, and
+        # a JAX array made from it on the CPU shares it in turn, so an
+        # update in place would reach the JAX side
+        out[flax_name(name)] = np.array(a, order="C")
     return out
 
 

@@ -25,8 +25,15 @@ class CrfHead(nn.Linear):
         self.scale, self.blank_score = crf.scale, crf.blank_score
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        """``[..., insize]`` → ``[..., 4^state_len·5]`` in ``h``'s dtype."""
+        """``[..., insize]`` → ``[..., 4^state_len·5]`` in the linear
+        layer's output dtype.  With grad enabled, the blank column is
+        concatenated before ``scale·tanh`` (autograd cannot go through
+        ``out=``); else the scores are written in place, one buffer."""
         lin = super().forward(h).view(*h.shape[:-1], -1, 4)
+        if torch.is_grad_enabled():
+            moves = torch.tanh(lin) * self.scale
+            blank = torch.full_like(moves[..., :1], self.blank_score)
+            return torch.cat([blank, moves], -1).view(*h.shape[:-1], -1)
         scores = torch.empty((*lin.shape[:-1], 5), dtype=lin.dtype,
                              device=lin.device)
         scores[..., 0] = self.blank_score

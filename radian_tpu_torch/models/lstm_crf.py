@@ -17,6 +17,18 @@ departures from the published model):
 - ``crf``: the CRF head (``models/crf_head.py``, shared with the
   transformer-CRF model), with a bias.
 
+Training keeps the parameters in float32 (``compute_dtype`` float32)
+under ``torch.autocast``: the convolutions and the head take autocast's
+dtype, and each LSTM layer runs in it by explicit casts of its input
+and weights (cuDNN's bf16 RNN on the card, forward and backward), not
+by autocast's own rule for the RNN.  On the card such a layer, casts
+included, runs as two CUDA graphs, its forward and its backward
+(``torch.cuda.make_graphed_callables``), captured at its first input
+shape, which every later step must keep: cuDNN launches a GEMM, a
+reduction and a cell kernel a step each way, some 10,000 launches a
+layer a training step of 1,666 steps, each too short at 64 rows to hide
+the next one's launch.
+
 The state dict keeps the numbering of Bonito's ``Serial`` encoder:
 ``encoder.0``–``.2`` the convolutions (``.conv``), ``encoder.3`` the
 permute, then a layer each LSTM (``.rnn``), the head last
@@ -58,7 +70,10 @@ class LstmCrfModel(nn.Module):
         layers.append(nn.Identity())  # Bonito's Permute: no parameters
         insize = model.stem[-1].size
         for _ in range(rnn.num_layers):
-            layers.append(nn.ModuleDict({"rnn": nn.LSTM(insize, rnn.size)}))
+            lstm = nn.LSTM(insize, rnn.size)
+            # Bonito's disable_state_bias: bias_hh stays zero, untrained
+            lstm.bias_hh_l0.requires_grad_(False)
+            layers.append(nn.ModuleDict({"rnn": lstm}))
             insize = rnn.size
         layers.append(nn.ModuleDict({"linear": CrfHead(rnn.size,
                                                        model.crf)}))
@@ -69,6 +84,9 @@ class LstmCrfModel(nn.Module):
         self.state_len = model.crf.state_len
         self.sample_stride = self.stride = math.prod(s.stride
                                                      for s in model.stem)
+        # a layer's training graphs on the card: (the input's shape and
+        # dtype they were captured at, the graphed layer), by layer
+        self._graphs: dict[int, tuple[tuple, nn.Module]] = {}
         self.to(compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -81,13 +99,51 @@ class LstmCrfModel(nn.Module):
         for layer in self.encoder[:self.n_stem]:
             h = F.silu(layer.conv(h))
         h = h.permute(2, 0, 1).contiguous()  # [T, N, C]
-        for layer, rev in zip(self.encoder[self.n_stem + 1:-1],
-                              self.reversed):
+        layers = self.encoder[self.n_stem + 1:-1]
+        for i, (layer, rev) in enumerate(zip(layers, self.reversed)):
             with profiling.span("radian.lstm", h.device):
                 profiling.count("lstm_row_steps", h.shape[0] * h.shape[1])
-                h = layer.rnn(h.flip(0) if rev else h)[0]
+                h = self._recur(i, layer.rnn, h.flip(0) if rev else h)
                 if rev:
                     h = h.flip(0)
         # [N, T, size] before the head, so that its scores are [N, T, ·]
         h = h.transpose(0, 1).contiguous()
         return self.encoder[-1].linear(h)
+
+    def _recur(self, i: int, rnn: nn.LSTM, h: torch.Tensor) -> torch.Tensor:
+        """Layer ``i``'s output over ``h``; under autocast, in autocast's
+        dtype (:class:`_CastLstm`), graphed when it trains on the card."""
+        dev = h.device.type
+        if not torch.is_autocast_enabled(dev):
+            return rnn(h)[0]
+        if not (h.is_cuda and torch.is_grad_enabled()):
+            return _CastLstm(rnn, torch.get_autocast_dtype(dev))(h)
+        seen = (tuple(h.shape), h.dtype)
+        if i not in self._graphs:
+            layer = _CastLstm(rnn, torch.get_autocast_dtype(dev))
+            with torch.autocast(dev, enabled=False):
+                sample = torch.zeros_like(h).requires_grad_(h.requires_grad)
+                self._graphs[i] = seen, torch.cuda.make_graphed_callables(
+                    layer, (sample,))
+        captured, graphed = self._graphs[i]
+        if seen != captured:
+            raise ValueError(
+                f"LSTM layer {i}'s training graphs were captured for inputs "
+                f"{captured}, not {seen}: a model trains at one batch shape")
+        return graphed(h)
+
+
+class _CastLstm(nn.Module):
+    """An LSTM layer run in ``dtype``: its input and weights cast
+    (differentiably) to it, autocast off inside."""
+
+    def __init__(self, rnn: nn.LSTM, dtype: torch.dtype):
+        super().__init__()
+        self.rnn, self.dtype = rnn, dtype
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(h.device.type, enabled=False):
+            weights = {k: p.to(self.dtype)
+                       for k, p in self.rnn.named_parameters()}
+            return torch.func.functional_call(self.rnn, weights,
+                                              (h.to(self.dtype),))[0]

@@ -7,6 +7,9 @@ optimizers differ:
 
 - ``adam``: ``m̂ / (sqrt(v̂) + eps)`` with the config's ``eps``, the
   bias corrections in float32;
+- ``adamw``: ``optax.adamw``, Adam's update plus ``weight_decay`` times
+  the parameter (decoupled weight decay, torch's ``AdamW`` too), scaled
+  by the rate;
 - ``amsgrad``: the running max of the *bias-corrected* ``v̂`` (torch's
   keeps the max of the raw second moment);
 - ``adagrad``: the accumulator starts at 0.1 and the update is
@@ -63,9 +66,9 @@ class OptState:
 
 @dataclasses.dataclass
 class Transform:
-    """One optax rule: ``kind`` ('adam', 'amsgrad', 'sgd', 'adagrad')
-    scaled by ``-lr`` (a float, or a schedule of the update count), after
-    the clips."""
+    """One optax rule: ``kind`` ('adam', 'adamw', 'amsgrad', 'sgd',
+    'adagrad') scaled by ``-lr`` (a float, or a schedule of the update
+    count), after the clips."""
 
     kind: str
     lr: float | Callable[[int], float]
@@ -76,10 +79,12 @@ class Transform:
     nesterov: bool = False
     clipnorm: float | None = None
     clipvalue: float | None = None
+    weight_decay: float = 0.0  # adamw's
 
     @property
     def slot_names(self) -> tuple[str, ...]:
-        return {"adam": ("mu", "nu"), "amsgrad": ("mu", "nu", "nu_max"),
+        return {"adam": ("mu", "nu"), "adamw": ("mu", "nu"),
+                "amsgrad": ("mu", "nu", "nu_max"),
                 "adagrad": ("sum_of_squares",),
                 "sgd": ("trace",) if self.momentum is not None else ()
                 }[self.kind]
@@ -92,10 +97,14 @@ class Transform:
 
     @torch.no_grad()
     def apply(self, params: dict[str, torch.Tensor],
-              grads: dict[str, torch.Tensor], state: OptState) -> OptState:
+              grads: dict[str, torch.Tensor], state: OptState,
+              names: list[str] | None = None) -> OptState:
         """One update: writes the new parameters in place and returns the
-        new state (its buffers replaced, the old ones untouched)."""
-        names = _flax_order(params)
+        new state (its buffers replaced, the old ones untouched).
+        ``names``: the order in which the clip sums the leaves and the
+        update visits them; by default radian's (:func:`flax_order`)."""
+        if names is None:
+            names = flax_order(params)
         g = {k: grads[k] for k in names}
         if self.clipnorm:
             norm = torch.zeros((), device=g[names[0]].device)
@@ -121,7 +130,7 @@ class Transform:
                            else self.lr)
         for k in names:
             gk = g[k]
-            if self.kind in ("adam", "amsgrad"):
+            if self.kind in _ADAMS:
                 bc1, bc2 = corrections(gk.device)
                 mu = (1 - self.b1) * gk + self.b1 * slots["mu"][k]
                 nu = (1 - self.b2) * (gk * gk) + self.b2 * slots["nu"][k]
@@ -131,6 +140,8 @@ class Transform:
                     nu_hat = torch.maximum(slots["nu_max"][k], nu_hat)
                     slots["nu_max"][k] = nu_hat
                 u = (mu / bc1) / (nu_hat.sqrt() + self.eps)
+                if self.kind == "adamw":
+                    u = u + self.weight_decay * params[k]
             elif self.kind == "adagrad":
                 acc = gk * gk + slots["sum_of_squares"][k]
                 slots["sum_of_squares"][k] = acc
@@ -146,6 +157,9 @@ class Transform:
         return OptState(count, slots)
 
 
+_ADAMS = ("adam", "adamw", "amsgrad")
+
+
 def _per_device(make: Callable[[torch.device], object]
                 ) -> Callable[[torch.device], object]:
     """``make(device)``, made once a device."""
@@ -159,7 +173,7 @@ def _per_device(make: Callable[[torch.device], object]
     return get
 
 
-def _flax_order(params) -> list[str]:
+def flax_order(params) -> list[str]:
     """Parameter names in the order ``jax.tree.leaves`` visits their
     leaves' flax paths (nested dict keys, sorted), a leaf's shards in
     shard order."""
@@ -177,6 +191,10 @@ def build_optimizer(opt_config: DotDict,
         c = opt_config.adam
         return Transform("amsgrad" if c.get("amsgrad") else "adam", c.lr,
                          c.beta_1, c.beta_2, c.epsilon, **_clips(c))
+    if kind == "adamw":
+        c = opt_config.adamw
+        return Transform("adamw", c.lr, c.beta_1, c.beta_2, c.epsilon,
+                         weight_decay=float(c.weight_decay), **_clips(c))
     if kind == "sgd":
         c = opt_config.sgd
         return Transform("sgd", c.lr, momentum=c.momentum or None,
@@ -224,7 +242,7 @@ def opt_state_to_optax(tx: Transform, state: OptState) -> list[np.ndarray]:
     parameters in flax layout and sorted path order, and for a schedule
     its own count."""
     leaves = []
-    if tx.kind in ("adam", "amsgrad"):
+    if tx.kind in _ADAMS:
         leaves.append(np.asarray(state.count, np.int32))
     for s in tx.slot_names:
         flat = tensors_to_flax(state.slots[s])
@@ -239,8 +257,8 @@ def opt_state_from_optax(tx: Transform, leaves, params: dict[str, torch.Tensor]
     """The inverse of :func:`opt_state_to_optax`; buffers take the names
     of ``params`` and their devices (split as they are split)."""
     leaves = list(leaves)
-    names = list(dict.fromkeys(leaf_name(k)[0] for k in _flax_order(params)))
-    count = int(leaves.pop(0)) if tx.kind in ("adam", "amsgrad") else 0
+    names = list(dict.fromkeys(leaf_name(k)[0] for k in flax_order(params)))
+    count = int(leaves.pop(0)) if tx.kind in _ADAMS else 0
     slots = {}
     for s in tx.slot_names:
         flat = {flax_name(k): np.asarray(leaves.pop(0)) for k in names}

@@ -14,6 +14,13 @@ bfloat16; parameters, optimizer state, residual sums, the softmax and
 the loss stay float32, as in the JAX package.  In float32 on the card,
 TF32 stays off (``models/sig2seq.py``).
 
+The model family is chosen once, from the config's ``model.type``:
+radian's TCN with the CTC loss (``CtcFamily``, all of the above), or
+Bonito's LSTM-CRF (``CrfFamily``) with Bonito's CTC-CRF loss
+(``ops/crf_loss.py``), float32 parameters under a bf16 autocast when
+``compute_dtype='bfloat16'``, on one device.  The transformer-CRF is
+refused: its card kernels have no backward.
+
 Three deliberate deviations from the JAX ``Trainer``:
 
 - ``evaluate_scan`` weights each batch's loss by its real rows, as
@@ -73,8 +80,11 @@ from radian_tpu_torch.models.checkpoint import (
     params_to_flax,
     split_params,
 )
+from radian_tpu_torch.models import lstm_crf, tx_crf
+from radian_tpu_torch.models.init import init_lstm_crf
 from radian_tpu_torch.models.sig2seq import build_model
 from radian_tpu_torch.models.tensor_parallel import shard_model
+from radian_tpu_torch.ops.crf_loss import crf_loss
 from radian_tpu_torch.ops.ctc import ctc_loss
 from radian_tpu_torch.ops.greedy import batch_mean_edit_distance
 from radian_tpu_torch.parallel.mesh import (
@@ -84,7 +94,11 @@ from radian_tpu_torch.parallel.mesh import (
     param_shardings,
 )
 from radian_tpu_torch.pipeline import resolve_device
-from radian_tpu_torch.train.optimizers import OptState, build_optimizer
+from radian_tpu_torch.train.optimizers import (
+    OptState,
+    build_optimizer,
+    flax_order,
+)
 from radian_tpu_torch.utils import profiling
 from radian_tpu_torch.utils.tensorboard import EventWriter
 
@@ -104,9 +118,96 @@ class TrainConfig:
     mesh_model: int = 1
     log_every: int = 50
     # 'bfloat16': conv/dense math in bfloat16; parameters, optimizer
-    # state, residual sums, softmax and the CTC loss stay float32
+    # state, residual sums, softmax and the CTC loss stay float32 (a CRF
+    # model: bf16 autocast over float32 parameters, the loss float32)
     compute_dtype: str = "float32"
     device: str = "cuda"
+
+
+class CtcFamily:
+    """Radian's TCN and the CTC loss, as the JAX ``Trainer`` has them:
+    the seeded init, the parameters split over the process's model row,
+    ``compute_dtype`` the model's own (bf16 math, float32 sums)."""
+
+    host_keys: tuple[str, ...] = ()
+    # the optimizer's leaf order: optax's, over the flax tree
+    order = staticmethod(flax_order)
+
+    def __init__(self, config: DotDict, tcfg: TrainConfig):
+        if config.model.tcn.dropout_rate > 0.0:
+            raise NotImplementedError(
+                f"dropout_rate={config.model.tcn.dropout_rate}: the "
+                "JAX Trainer cannot train with dropout (its train step "
+                "passes no 'dropout' rng), so the port does not either; "
+                "the model infers with it (a no-op at train=False)")
+
+    def build(self, tr: "Trainer", mesh: Mesh) -> torch.nn.Module:
+        model = build_model(
+            tr.config, compute_dtype=_DTYPES[tr.tcfg.compute_dtype])
+        model.reset_parameters(tr.tcfg.seed)
+        return shard_model(model, tr.row,
+                           param_shardings(params_to_flax(model), mesh))
+
+    def losses(self, tr: "Trainer", batch: dict, train: bool):
+        log_probs = tr.model(batch["signal"][..., None], train=train)
+        return ctc_loss(log_probs, batch["input_length"], batch["labels"],
+                        batch["label_length"], blank_id=tr.tcfg.blank_id)
+
+
+class CrfFamily:
+    """Bonito's LSTM-CRF and its CTC-CRF loss (``ops/crf_loss.py``), as
+    ``bonito train`` has them: float32 parameters from Bonito's seeded
+    init (``init_lstm_crf``), ``compute_dtype='bfloat16'`` a bf16
+    autocast over them, the loss in float32 inside the span
+    ``radian.train.crf_loss``.  A batch: ``signal [N, chunksize]``
+    (normalised chunks), ``targets [N, n_max]`` (bases 0–3),
+    ``target_length [N]`` (kept on the host: ``host_keys``) and
+    ``weight [N]``.  One device: no mesh, no process group."""
+
+    host_keys = ("target_length",)
+    # the optimizer's leaf order: the model's own, as torch's
+    order = staticmethod(list)
+
+    def __init__(self, config: DotDict, tcfg: TrainConfig):
+        self.kind = config.model.type
+        self.state_len = config.model.crf.state_len
+
+    def build(self, tr: "Trainer", mesh: Mesh) -> torch.nn.Module:
+        if tr.grouped or len(tr.row) > 1 or mesh.shape["data"] > 1:
+            raise NotImplementedError(
+                f"a {self.kind} model trains on one device, not a mesh or "
+                "a process group")
+        model = build_model(tr.config, compute_dtype=torch.float32)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               init_lstm_crf(tr.config.model,
+                                             tr.tcfg.seed).items()})
+        return model.to(tr.device)
+
+    def losses(self, tr: "Trainer", batch: dict, train: bool):
+        dev = tr.device
+        with torch.autocast(dev.type, dtype=torch.bfloat16,
+                            enabled=tr.tcfg.compute_dtype == "bfloat16"):
+            scores = tr.model(batch["signal"])
+        with profiling.span("radian.train.crf_loss", dev):
+            return crf_loss(scores, batch["targets"], batch["target_length"],
+                            self.state_len)
+
+
+def _family(config: DotDict, tcfg: TrainConfig):
+    """The config's model family: radian's unless ``model.type`` names
+    Bonito's LSTM-CRF; the transformer-CRF is refused."""
+    kind = config.model.get("type")
+    if kind == tx_crf.MODEL_TYPE:
+        raise NotImplementedError(
+            f"model.type {kind!r}: the transformer-CRF does not train, as "
+            "its card kernels (csrc/tx_attention.cu, csrc/tx_norm.cu) have "
+            "no backward")
+    if kind == lstm_crf.MODEL_TYPE:
+        return CrfFamily(config, tcfg)
+    if kind is not None:
+        raise ValueError(f"model.type {kind!r}: {lstm_crf.MODEL_TYPE!r} or "
+                         "none for radian's SigToSeq")
+    return CtcFamily(config, tcfg)
 
 
 class Trainer:
@@ -145,26 +246,21 @@ class Trainer:
         self.mesh = mesh
         self.row = [resolve_device(d) for d in mesh.model_row(
             self.rank if mesh.shape["data"] > 1 else 0)]
-        if self.config.model.tcn.dropout_rate > 0.0:
-            raise NotImplementedError(
-                f"dropout_rate={self.config.model.tcn.dropout_rate}: the "
-                "JAX Trainer cannot train with dropout (its train step "
-                "passes no 'dropout' rng), so the port does not either; "
-                "the model infers with it (a no-op at train=False)")
+        # the model family, chosen once: its model, weights and loss
+        self.family = _family(self.config, self.tcfg)
         # the batch, the loss and the collectives: the row's first device
         self.device = self.row[0]
-        model = build_model(
-            self.config, compute_dtype=_DTYPES[self.tcfg.compute_dtype])
-        model.reset_parameters(self.tcfg.seed)
-        self.model = shard_model(
-            model, self.row, param_shardings(params_to_flax(model), mesh))
-        self.params = dict(self.model.named_parameters())
+        self.model = self.family.build(self, mesh)
+        # the trained parameters (Bonito's LSTMs keep bias_hh at zero)
+        self.params = {k: p for k, p in self.model.named_parameters()
+                       if p.requires_grad}
         if self.grouped:
             with torch.no_grad():
                 for p in self.params.values():
                     t = p.detach().to(self.device)
                     dist.broadcast(t, src=0)
                     p.copy_(t)
+        self.order = self.family.order(self.params)
         self.tx = build_optimizer(self.config.train.opt)
         self.opt_state = self.tx.init(self.params)
         self.step = 0
@@ -202,21 +298,25 @@ class Trainer:
             dist.all_reduce(x)
         return x
 
+    def row_losses(self, batch: dict, train: bool = True) -> torch.Tensor:
+        """Each row's ``w·loss`` (``weight`` 1 a real row, 0 a filler
+        row): the terms ``loss`` sums."""
+        return self.family.losses(self, batch, train) * batch["weight"]
+
     def loss(self, batch: dict, train: bool = True) -> torch.Tensor:
-        """This process's share of the mean CTC loss over the global
-        batch's real rows (``weight`` 1; filler rows weigh 0): its own
-        ``Σ(w·loss)`` over the group's ``Σw``.  Summed over the group,
-        the shares are the loss; without a group, the share is."""
-        log_probs = self.model(batch["signal"][..., None], train=train)
-        losses = ctc_loss(log_probs, batch["input_length"], batch["labels"],
-                          batch["label_length"], blank_id=self.tcfg.blank_id)
+        """This process's share of the mean loss over the global batch's
+        real rows: its own ``Σ(w·loss)`` over the group's ``Σw``.  Summed
+        over the group, the shares are the loss; without a group, the
+        share is."""
         w = batch["weight"]
-        return (losses * w).sum() / self._all_sum(w.sum()).clamp_min(1.0)
+        return (self.row_losses(batch, train).sum()
+                / self._all_sum(w.sum()).clamp_min(1.0))
 
     def train_step(self, batch: dict) -> torch.Tensor:
-        """One update on a device batch; returns the global batch's loss
-        (on the device).  In a group, the gradients and the loss shares
-        are summed in one all-reduce on the row's first device."""
+        """One update on a device batch (its ``family.host_keys`` on the
+        host); returns the global batch's loss (on the device).  In a
+        group, the gradients and the loss shares are summed in one
+        all-reduce on the row's first device."""
         dev = self.device
         with profiling.span("radian.train.step", dev, batch=self.step):
             with profiling.span("radian.train.forward", dev):
@@ -237,7 +337,7 @@ class Trainer:
             with profiling.span("radian.train.update", dev):
                 self.opt_state = self.tx.apply(
                     self.params, dict(zip(self.params, grads)),
-                    self.opt_state)
+                    self.opt_state, self.order)
             self.step += 1
         return loss.detach()
 
@@ -373,8 +473,12 @@ class Trainer:
                 out[k] = np.concatenate([v, filler], axis=0)
         return out
 
+    def _to_device(self, key: str, v: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(v)
+        return t if key in self.family.host_keys else t.to(self.device)
+
     def _put_batch(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device)
+        return {k: self._to_device(k, v)
                 for k, v in self._host_batch(batch).items()}
 
     # -- device-resident pool -----------------------------------------------
@@ -394,9 +498,15 @@ class Trainer:
                               if k == "weight"
                               else np.repeat(v[:1], pad, axis=0))
                     p[k] = np.concatenate([v, filler], axis=0)
-        return {k: torch.from_numpy(np.stack([p[k] for p in proc])
-                                    ).to(self.device)
-                for k in proc[0]}
+        out = {}
+        for k in proc[0]:
+            # ragged columns (targets padded to each batch's longest) are
+            # padded with zeros to the pool's widest
+            width = [max(d) for d in zip(*(p[k].shape[1:] for p in proc))]
+            out[k] = self._to_device(k, np.stack([np.pad(
+                p[k], [(0, 0)] + [(0, w - d) for w, d in zip(
+                    width, p[k].shape[1:])]) for p in proc]))
+        return out
 
     def train_epoch_scan(self, stacked: dict, epoch: int, steps: int,
                          start: int = 0) -> float:
@@ -460,6 +570,10 @@ class Trainer:
                            tag: str = "val/edit_distance") -> float:
         """Greedy-decode edit distance on a dataset, the working version
         of the reference's no-op EditDistanceCallback (train.py:31-46)."""
+        if not isinstance(self.family, CtcFamily):
+            raise NotImplementedError(
+                f"model.type {self.config.model.type!r}: the edit distance "
+                "is radian's greedy CTC decode")
         dists, weights = [], []
         for batch in dataset:
             signal = torch.from_numpy(np.asarray(batch["signal"]))

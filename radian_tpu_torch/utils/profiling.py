@@ -206,6 +206,16 @@ def current():
     return s[-1] if s else None
 
 
+def frames():
+    """This thread's open spans, innermost last: a live list (None while
+    tracing is off).  Another thread's ``within(frames[-1])`` later nests
+    its spans in whatever span this thread has open then (the autograd
+    engine's device thread running a backward, say)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    return _REC.stack()
+
+
 def within(parent, batch=None):
     """Make ``parent`` (from ``current()``, on another thread) and
     ``batch`` the enclosing span of this thread's spans in the body."""
